@@ -8,12 +8,18 @@ Phases (each raises on any failure; the script then exits non-zero):
 1. build: compile every kernel from cldrd_tpu_torch/csrc/ with nvcc
    (one process per source, all at once) and print the seconds.
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the main path gives it (D=768; K1 at N=1,048,576 with
-   B=128 and 512 and at the pipeline's N=32,768, k=100; K2 at the
-   portable route's ragged batch; bf16, int8 with scales, and fp32
-   stores). On integer-valued inputs every dot is exact, so outputs must
-   be EQUAL, ties included; on normal data values agree within 1e-5 of
-   the largest score and every emitted position scores its slot's value.
+   the shapes the main path gives it. K1/K2 (D=768; K1 at N=1,048,576
+   with B=128 and 512, at the pipeline's N=32,768, k=100, and at bin
+   sizes 32, 64 and 256; K2 at the portable route's ragged batch; bf16,
+   int8 with scales, and fp32 stores): on integer-valued inputs every dot
+   is exact, so outputs must be EQUAL, ties included; on normal data
+   values agree within 1e-5 of the largest score and every emitted
+   position scores its slot's value. K3/K4/K5 (H=12, D=64; the passage
+   tower's B=240, L=256, the query tower's B=8, L=30, packed rows with
+   segments, the query encode's B=512, L=30; dropout 0.1, one seed):
+   outputs and dq/dk/dv within 1e-5 of the largest magnitude in fp32 and
+   2e-2 in bf16. Each kernel is timed against its plain version, its
+   bound and, for attention, scaled_dot_product_attention.
 3. search: FlatIPIndex stood up on the device at MS MARCO scale
    (8,847,360 x 768 int8 with scales, then 1,048,576 x 768 bf16). K1 is
    first held to its plain version at the int8 store's own shape (EQUAL
@@ -22,15 +28,25 @@ Phases (each raises on any failure; the script then exits non-zero):
    checked against a torch exact oracle (full matmul + two-key sort), and
    integer-valued batches that must need no rescue and equal the oracle;
    and topk_binmax at a ragged batch, which takes the portable route.
-4. pipeline: the CLIs index -> retrieve -> evaluate at DistilBERT-base
-   width with random weights from --seed, the hash tokenizer, 32,768
-   synthetic passages at --max-length 256 and 1,024 queries at 30.
+4. train: at DistilBERT-base width from random weights (--seed), the hash
+   tokenizer, 32,768 synthetic passages and label-mode 8/9/10 training
+   files: cli.curriculum runs three iterations (bz 8, nway 30, Lq 30,
+   Lp 256, bf16, dropout 0.1, lambda_mrr, separate towers, flat layout,
+   4 steps each), cli.train runs 8 steps with --pack-passages, and a
+   resume from its step-4 checkpoint must reproduce step 5's loss. Every
+   loss and grad norm must be finite; K3 must launch in every
+   non-final block of both towers at every step. Prints ms per step and
+   examples/s, flat and packed.
+5. pipeline: the CLIs index -> retrieve -> evaluate with the trained
+   checkpoint over the train phase's 32,768 passages at --max-length 256
+   and 1,024 queries at 30; the retrieves encode queries with
+   --attention-impl pallas (K5).
 
-Kernel launch counts are set to 0 just before phase 3's searches and read
-just after phase 4; a kernel of the path with no launch there fails the
-run. The second-to-last line is one JSON object with every kernel's
-launches, error, times and bound; the line before it is the card's name
-and power limit from nvidia-smi; the last line is the result object.
+Kernel launch counts are set to 0 just before phase 3 and read just
+after phase 5; a kernel of the path with no launch there fails the run.
+The second-to-last line is one JSON object with every kernel's launches,
+error, times and bound; the line before it is the card's name and power
+limit from nvidia-smi; the last line is the result object.
 """
 from __future__ import annotations
 
@@ -57,6 +73,13 @@ N_KERNEL = 1_048_576
 N_FULL = 8_847_360   # MS MARCO passage collection, padded to 2048 rows
 N_BF16 = 1_048_576
 N_PIPELINE = 32_768  # passages of the pipeline phase
+N_QUERIES = 1024     # queries of the pipeline phase
+N_BINS = 262_144     # K1 at bin sizes other than 128
+HEADS, HEAD_DIM, N_LAYERS = 12, 64, 6  # DistilBERT-base
+TRAIN_BZ, NWAY, TRAIN_LQ, TRAIN_LP = 8, 30, 30, 256  # the train phase's shape
+TRAIN_EXAMPLES = 32  # per curriculum iteration: 4 steps at batch 8
+ATTN_P, ATTN_SEED = 0.1, 20240611
+RESUME_STEP = 4      # the packed run's mid-run checkpoint (of 8 steps)
 K = 1000
 K_PIPELINE_EXTRACT = 100  # the pipeline's --topk that takes the extract route
 SEARCH_BATCH = 512
@@ -116,11 +139,11 @@ def k2_bytes_ops(bz, n, d, c_dtype, q_dtype, bin_rows, scaled):
     return nbytes, 2 * bz * n * d
 
 
-def k1_rounds(bz, n, k):
+def k1_rounds(bz, n, k, bin_rows=128):
     """(R, R2) that the extract route gives K1 at this shape."""
     from cldrd_tpu_torch.search import mips
 
-    return (mips._extract_rounds(n, bz, k, 128),
+    return (mips._extract_rounds(n, bz, k, bin_rows),
             mips._super_rounds(n, n // 2048, bz, k))
 
 
@@ -214,15 +237,15 @@ def _check_k1(tag, q, c, ids, scales, got, ref, integer):
     return err
 
 
-def _compare_k1_on(ctx, tag, q, c, ids, scales, k, integer):
+def _compare_k1_on(ctx, tag, q, c, ids, scales, k, integer, bin_rows=128):
     from cldrd_tpu_torch.ops.extract_topk import extract_topk, extract_topk_plain
 
     bz, n = q.shape[0], c.shape[0]
-    R, R2 = k1_rounds(bz, n, k)
+    R, R2 = k1_rounds(bz, n, k, bin_rows)
     tag = (f"K1 {tag} B={bz} N={n} {str(c.dtype)[6:]} k={k} R={R} R2={R2} "
-           f"{'int' if integer else 'normal'}")
-    got = extract_topk(q, c, ids, R, R2, 128, scales)
-    ref = extract_topk_plain(q, c, ids, R, R2, 128, scales)
+           f"bin={bin_rows} {'int' if integer else 'normal'}")
+    got = extract_topk(q, c, ids, R, R2, bin_rows, scales)
+    ref = extract_topk_plain(q, c, ids, R, R2, bin_rows, scales)
     err = _check_k1(tag, q, c, ids, scales, got, ref, integer)
     log(f"[kernels] {tag}: {'EQUAL' if integer else 'agrees'}, "
         f"max_abs_err {err:.3g}")
@@ -230,11 +253,12 @@ def _compare_k1_on(ctx, tag, q, c, ids, scales, k, integer):
     ctx.setdefault("k1_checked", []).append(tag)
 
 
-def _compare_k1(ctx, bz, n, c_dtype, q_dtype, integer, k=K):
+def _compare_k1(ctx, bz, n, c_dtype, q_dtype, integer, k=K, bin_rows=128):
     dev, gen = ctx["dev"], ctx["gen"]
     st = Store(n, D, c_dtype, dev, gen, integer, pad_rows=1000)
     q = make_queries(bz, D, q_dtype, dev, gen, integer)
-    _compare_k1_on(ctx, "gen", q, st.c, st.ids, st.scales, k, integer)
+    _compare_k1_on(ctx, "gen", q, st.c, st.ids, st.scales, k, integer,
+                   bin_rows)
 
 
 def _compare_k2_on(ctx, tag, q, c, ids, scales, bin_rows, integer):
@@ -295,6 +319,9 @@ def phase_kernels(ctx):
     # the pipeline's --topk 100 retrieve over its 32,768-row store
     _compare_k1(ctx, SEARCH_BATCH, N_PIPELINE, bf16, bf16, True,
                 k=K_PIPELINE_EXTRACT)
+    # the other bin sizes the extract route admits (int8 store, scales)
+    for bin_rows in (32, 64, 256):
+        _compare_k1(ctx, 128, N_BINS, i8, bf16, True, bin_rows=bin_rows)
     for bz in (128, RAGGED):
         _compare_k2(ctx, bz, n, bf16, bf16, True)
         _compare_k2(ctx, bz, n, i8, bf16, True)
@@ -305,6 +332,19 @@ def phase_kernels(ctx):
     _compare_k1(ctx, SEARCH_BATCH, N_PIPELINE, bf16, bf16, False,
                 k=K_PIPELINE_EXTRACT)
     _compare_k2(ctx, RAGGED, n, i8, bf16, False)
+
+    # attention: the passage tower (B=240, L=256), the query tower (B=8,
+    # L=30, a ragged tile), packed rows (B=8 x 10 rows, segments), the
+    # query encode (B=512, L=30); fp32 and bf16
+    for dtype in (f32, bf16):
+        _attn_check(ctx, "passage", TRAIN_BZ * NWAY, TRAIN_LP, dtype, False)
+        _attn_check(ctx, "query", TRAIN_BZ, TRAIN_LQ, dtype, False)
+        _attn_check(ctx, "packed", TRAIN_BZ * 10, TRAIN_LP, dtype, True)
+        _attn_check(ctx, "encode", SEARCH_BATCH, TRAIN_LQ, dtype, False,
+                    p=0.0)
+    torch.cuda.empty_cache()
+    _time_attention(ctx)
+    torch.cuda.empty_cache()
 
     # K1 and K2 held to their plain versions and timed at B=512, N=1M bf16
     # (K1 at the bf16 store's shape, K2 at the portable route's widest batch)
@@ -357,6 +397,139 @@ def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
             log(f"[time] {kernel} {tag} B={bz} N={n}: kernel {r['ms']:.3f} ms,"
                 f" plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms"
                 f" ({r['bound'][1]}), torch.matmul bf16 {t_mm:.3f} ms")
+
+
+# ------------------------------------------------ attention vs plain
+
+
+def _attn_inputs(ctx, b, length, dtype, segments):
+    """q, k, v, upstream grad [b, length, H, 64] and a key mask (the first
+    row half padded) or, packed, 3-5 segments per row and a padded tail."""
+    dev, gen = ctx["dev"], ctx["gen"]
+    q, k, v, g = (torch.randn(b, length, HEADS, HEAD_DIM, generator=gen,
+                              device=dev).to(dtype) for _ in range(4))
+    mask = torch.ones(b, length, dtype=torch.int32, device=dev)
+    mask[0, length // 2:] = 0
+    seg = None
+    if segments:
+        cuts = torch.randint(30, 84, (b, 5), generator=gen,
+                             device=dev).cumsum(1)
+        pos = torch.arange(length, device=dev)
+        seg = (1 + (pos[None, :, None] >= cuts[:, None, :]).sum(-1)).int()
+        seg = torch.where(pos[None] < cuts[:, -1:].clamp(max=length - 7),
+                          seg, torch.zeros_like(seg))
+        mask = (seg > 0).int()
+    return q, k, v, g, mask, seg
+
+
+def _attn_bytes_ops(b, length, dtype, n_tensors, n_dots):
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = n_tensors * b * HEADS * length * HEAD_DIM * item + 4 * b * length
+    return nbytes, n_dots * 2 * b * HEADS * length * length * HEAD_DIM
+
+
+def _attn_check(ctx, tag, b, length, dtype, segments, p=ATTN_P):
+    """K3 + K4 through flash_attention_train, and the plain versions, on
+    the same inputs and seed; K5 at p=0 without segments. fp32 within
+    1e-5 of the largest magnitude (a wrong dropout bit shows as ~|v|/L),
+    bf16 within 2e-2."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    q, k, v, g, mask, seg = _attn_inputs(ctx, b, length, dtype, segments)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out = att.flash_attention_train(qs, ks, vs, mask, ATTN_SEED, p, seg)
+    out.backward(g)
+    ref = att.train_fwd_plain(q, k, v, mask, ATTN_SEED, p, seg)
+    refs = att.train_bwd_plain(q, k, v, mask, ATTN_SEED, p, seg, g)
+    pairs = [("out", out, ref), ("dq", qs.grad, refs[0]),
+             ("dk", ks.grad, refs[1]), ("dv", vs.grad, refs[2])]
+    if seg is None:
+        pairs.append(("K5 out", att.flash_attention(q, k, v, mask),
+                      att.attention_plain(q, k, v, mask)))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    errs = {}
+    for name, got, want in pairs:
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if not err <= tol * scale:
+            raise AssertionError(f"attention {tag} {dtype} {name}: max abs "
+                                 f"err {err:.3g} > {tol} x {scale:.3g}")
+        errs[name] = err
+    log(f"[kernels] attention {tag} B={b} L={length} {str(dtype)[6:]} "
+        f"p={p}: out/dq/dk/dv{'/K5' if seg is None else ''} agree with the "
+        f"plain versions (max abs err "
+        f"{', '.join(f'{e:.3g}' for e in errs.values())}; tolerance {tol} "
+        "of the largest magnitude)")
+    key = "attn_err_bf16" if dtype == torch.bfloat16 else "attn_err_fp32"
+    ctx[key] = max(ctx.get(key, 0.0), *errs.values())
+
+
+def _time_attention(ctx):
+    """K3, K4 (B=240, L=256: the passage tower, bf16, p=0.1) and K5 (the
+    query encode: B=512, L=30, bf16) against their plain versions, their
+    bounds and one PyTorch call computing the same function
+    (scaled_dot_product_attention, with dropout_p for K3/K4; its
+    backward for K4), which the port never calls."""
+    import torch.nn.functional as F
+
+    from cldrd_tpu_torch.ops import attention as att
+
+    rows = ctx.setdefault("timings", {})
+    bf16 = torch.bfloat16
+    b, length = TRAIN_BZ * NWAY, TRAIN_LP
+    q, k, v, g, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
+    out, stats = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, None,
+                                 True, "train_fwd")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    amask = (mask != 0)[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
+                                             dropout_p=ATTN_P)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=amask, dropout_p=ATTN_P), reps=10)
+    gt = g.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), gt, retain_graph=True), reps=10)
+    del lib_out, qt, kt, vt
+    nb3, ops3 = _attn_bytes_ops(b, length, bf16, 4, 2)
+    nb4, ops4 = _attn_bytes_ops(b, length, bf16, 7, 5)
+    rows["attention_train_fwd"] = {"train": dict(
+        ms=time_ms(lambda: att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P,
+                                           None, True, "train_fwd"), reps=10),
+        plain_ms=time_ms(lambda: att.train_fwd_plain(q, k, v, mask,
+                                                     ATTN_SEED, ATTN_P),
+                         reps=1),
+        bound=bound_ms(nb3, ops3, "bf16"), library_ms=lib_fwd, B=b,
+        L=length)}
+    rows["attention_train_bwd"] = {"train": dict(
+        ms=time_ms(lambda: att._launch_bwd(q, k, v, mask, ATTN_SEED, ATTN_P,
+                                           None, stats, g), reps=10),
+        plain_ms=time_ms(lambda: att.train_bwd_plain(q, k, v, mask,
+                                                     ATTN_SEED, ATTN_P, None,
+                                                     g), reps=1),
+        bound=bound_ms(nb4, ops4, "bf16"), library_ms=lib_bwd, B=b,
+        L=length)}
+    del q, k, v, g, out, stats
+    torch.cuda.empty_cache()
+    b, length = SEARCH_BATCH, TRAIN_LQ
+    q, k, v, _, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
+    amask = (mask != 0)[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2)
+    rows["attention_infer"] = {"encode": dict(
+        ms=time_ms(lambda: att.flash_attention(q, k, v, mask), reps=10),
+        plain_ms=time_ms(lambda: att.attention_plain(q, k, v, mask), reps=3),
+        bound=bound_ms(nb5, ops5, "bf16"),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask), reps=10), B=b, L=length)}
+    for name, tag in (("attention_train_fwd", "train"),
+                      ("attention_train_bwd", "train"),
+                      ("attention_infer", "encode")):
+        r = rows[name][tag]
+        log(f"[time] {name} B={r['B']} L={r['L']} bf16: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention {r['library_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.3f} ms ({r['bound'][1]})")
 
 
 def _oracle(index, q_np, k):
@@ -572,28 +745,266 @@ def _check_run_file(path, n_q, k, n_pass):
             raise AssertionError(f"{path}: query {qid} pids malformed")
 
 
-def phase_pipeline(ctx):
-    from cldrd_tpu_torch.cli import evaluate as cli_evaluate
-    from cldrd_tpu_torch.cli import index as cli_index
-    from cldrd_tpu_torch.cli import retrieve as cli_retrieve
-    from cldrd_tpu_torch.models import DistilBertConfig, NwayDualEncoder
-    from cldrd_tpu_torch.ops import extract_topk as k1_mod
+def _write_training_files(work, n_q, n_pass, seed):
+    """Curriculum files for label modes 8, 9 and 10 (5/10/20 relT
+    passages, 25/20/10 negatives split most-hard / semi-hard): each query's
+    relevant passage first among its relT, the rest random."""
+    rng = np.random.default_rng(seed + 1)
+    rel = {}
+    with open(os.path.join(work, "qrels.tsv")) as f:
+        for line in f:
+            qid, _, pid, _ = line.split("\t")
+            rel[int(qid)] = int(pid)
+    out = {}
+    for mode, (n_rel, n_neg) in (("8", (5, 25)), ("9", (10, 20)),
+                                 ("10", (20, 10))):
+        path = out[mode] = os.path.join(work, f"train_mode{mode}.jsonl")
+        with open(path, "w") as f:
+            for qid in rng.choice(n_q, TRAIN_EXAMPLES, replace=False):
+                pids = [rel[int(qid)]] + [
+                    int(p) for p in rng.choice(n_pass, n_rel + n_neg + 1,
+                                               replace=False)
+                    if p != rel[int(qid)]][:n_rel + n_neg - 1]
+                f.write(json.dumps({
+                    "qid": int(qid), "relT_pids": pids[:n_rel],
+                    "most_hard_pids": pids[n_rel:n_rel + n_neg // 2],
+                    "semi_hard_pids": pids[n_rel + n_neg // 2:]}) + "\n")
+    return out
+
+
+def _step_times(records, names, saved=()):
+    """Seconds between consecutive steps' metrics (one sync per step at
+    logging_steps=1), each run's first step left out (warm-up), and the
+    step after a checkpoint save (``saved``: (run, step) pairs) too."""
+    gaps = []
+    for name in names:
+        rs = [r for r in records if r["run"] == name]
+        gaps += [b["t"] - a["t"] for a, b in zip(rs, rs[1:])
+                 if (name, a["step"]) not in saved]
+    return gaps
+
+
+def _kernel_class(name):
+    if "attn_fwd" in name:
+        return "attention forward (K3/K5)"
+    if "attn_bwd" in name:
+        return "attention backward (K4)"
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
+        return "matmul (cuBLAS)"
+    if any(k in low for k in ("adam", "multi_tensor", "foreach")):
+        return "optimizer"
+    return "other (elementwise, norms, reductions, copies)"
+
+
+def _profile_steps(ctx, corpus, train_file, n_steps=3):
+    """For the flat and the packed layout: device time by kernel class and
+    the device's idle share over ``n_steps`` train steps of one batch
+    after a warm-up step on it (torch.profiler, device activity only, so
+    the tracer adds no host work to the steps), at the train phase's
+    shape. One batch throughout gives every step the warm-up's shapes, as
+    a run's steady state has (packed row counts only grow)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cldrd_tpu_torch.data import HashTokenizer, NwayDataset
+    from cldrd_tpu_torch.models import DistilBertConfig, DropoutRNG
+    from cldrd_tpu_torch.train import TrainConfig, Trainer, make_loss_fn
+    from cldrd_tpu_torch.train.trainer import batch_to_device
+
+    dev, seed = ctx["dev"], ctx["seed"]
+    cfg = TrainConfig(max_query_len=TRAIN_LQ, max_passage_len=TRAIN_LP,
+                      batch_size=TRAIN_BZ, label_mode="8", seed=seed,
+                      learning_rate=7e-6,
+                      run_folder=os.path.join(WORK, "pipeline", "profile"))
+    trainer = Trainer(cfg, DistilBertConfig(), device=dev)
+    trainer.model.reset_parameters(seed=seed)
+    trainer.model.to(dev).train()
+    trainer.optimizer = trainer._make_optimizer(100)
+    loss_fn = make_loss_fn(cfg)
+    out = {}
+    for kind, pack in (("flat", False), ("packed", True)):
+        data = NwayDataset.create_from_files(
+            corpus["queries"], corpus["collection"], train_file,
+            HashTokenizer(), TRAIN_LQ, TRAIN_LP, "8", pack_passages=pack)
+        batch = batch_to_device(next(data.batches(TRAIN_BZ, seed=seed)),
+                                dev)
+
+        def step(i):
+            trainer._step(batch, DropoutRNG(seed, i, dev), loss_fn)
+
+        step(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(1, n_steps + 1):
+                step(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_class, by_name = {}, {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+            # annotation ranges ("Optimizer.step#AdamW.step") span kernels
+            # that are counted on their own
+            if (us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(evt, "is_user_annotation", False)
+                    or evt.key.startswith("Optimizer.")):
+                continue
+            ms = us / 1e3 / n_steps
+            cls = _kernel_class(evt.key)
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
+        busy = sum(by_class.values())
+        rows = batch.get("packed_passages", batch.get(
+            "nway_passages"))["input_ids"].shape
+        out[kind] = {
+            "wall_ms_per_step": wall * 1e3 / n_steps,
+            "device_ms_per_step": busy, "by_class_ms": by_class,
+            "top_kernels_ms": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:12]),
+            "idle_share": 1.0 - busy / (wall * 1e3 / n_steps),
+            "passage_rows": int(rows[0] * rows[1])}
+        del batch
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(ctx):
+    """cli.curriculum (three iterations, flat), cli.train --pack-passages,
+    and a resume from the packed run's mid-run checkpoint, at
+    DistilBERT-base width from random weights, bf16, dropout 0.1."""
+    from cldrd_tpu_torch.cli import curriculum as cli_curriculum
+    from cldrd_tpu_torch.cli import train as cli_train
+    from cldrd_tpu_torch.ops import attention as att
+    from cldrd_tpu_torch.train import latest_checkpoint
+    from cldrd_tpu_torch.train.trainer import Trainer
 
     work = os.path.join(WORK, "pipeline")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    n_pass, n_q = N_PIPELINE, 1024
-    paths = _write_corpus(work, n_pass, n_q, ctx["seed"])
-    model = NwayDualEncoder(DistilBertConfig()).reset_parameters(
-        seed=ctx["seed"])
-    ckpt = os.path.join(work, "model.pth.tar")
-    torch.save({"state_dict": model.state_dict()}, ckpt)
-    del model
+    ctx["corpus"] = _write_corpus(work, N_PIPELINE, N_QUERIES, ctx["seed"])
+    files = _write_training_files(work, N_QUERIES, N_PIPELINE, ctx["seed"])
+    base = os.path.join(work, "train.yaml")
+    with open(base, "w") as f:
+        f.write(f"max_query_len: {TRAIN_LQ}\nmax_passage_len: {TRAIN_LP}\n"
+                "warmup_steps: 2\nlogging_steps: 1\nevaluate_steps: 1000\n"
+                f"compute_dtype: \"bfloat16\"\nseed: {ctx['seed']}\n")
+    runs = os.path.join(work, "runs")
+    # every step's metrics pass the trainer's finiteness check; record
+    # them (and when they arrived) there
+    records = []
+    check = Trainer._check_finite
+
+    def record(self, m, step):
+        records.append({"run": self.cfg.experiment_name, "step": step,
+                        "loss": m["loss"], "grad_norm": m["grad_norm"],
+                        "t": time.perf_counter()})
+        return check(self, m, step)
+
+    Trainer._check_finite = record
+    common = ["--config", base, "--tokenizer", "hash", "--device", "cuda",
+              "--dropout", "0.1", "--attention-dropout", "0.1",
+              "--batch-size", str(TRAIN_BZ), "--run-folder", runs]
+    try:
+        before = att.LAUNCHES["train_fwd"]
+        _, t_cur = _call_cli(cli_curriculum.main, [
+            "--queries", ctx["corpus"]["queries"],
+            "--passages", ctx["corpus"]["collection"],
+            "--training-paths", files["8"], files["9"], files["10"],
+            "--epochs", "1", "1", "1", *common])
+        flat_steps = 3 * TRAIN_EXAMPLES // TRAIN_BZ
+        k3_flat = att.LAUNCHES["train_fwd"] - before
+        # every block but the cls_only last one, in both towers
+        if k3_flat != 2 * (N_LAYERS - 1) * flat_steps:
+            raise AssertionError(f"{k3_flat} K3 launches in {flat_steps} "
+                                 f"flat steps ({2 * (N_LAYERS - 1)} a step "
+                                 "expected)")
+        train = ["--queries-path", ctx["corpus"]["queries"],
+                 "--passages-path", ctx["corpus"]["collection"],
+                 "--training-path", files["8"], "--label-mode", "8",
+                 "--num-train-epochs", "2", "--learning-rate", "7e-6",
+                 "--pack-passages", *common]
+        _, t_pack = _call_cli(cli_train.main, [
+            *train, "--experiment-name", "packed", "--evaluate-steps",
+            str(RESUME_STEP)])
+        _, t_res = _call_cli(cli_train.main, [
+            *train, "--experiment-name", "resumed", "--resume",
+            os.path.join(runs, "packed",
+                         f"checkpoint_{RESUME_STEP}.pth.tar")])
+    finally:
+        Trainer._check_finite = check
+    bad = [r for r in records
+           if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]))]
+    if bad or not records:
+        raise AssertionError(f"non-finite training metrics: {bad[:3]}")
+    by = {(r["run"], r["step"]): r for r in records}
+    nxt = RESUME_STEP + 1
+    straight = by[("packed", nxt)]["loss"]
+    resumed = by[("resumed", nxt)]["loss"]
+    if abs(resumed - straight) > 1e-6 * abs(straight):
+        raise AssertionError(f"resumed step {nxt} loss {resumed!r} != the "
+                             f"uninterrupted run's {straight!r}")
+    packed_steps = 2 * TRAIN_EXAMPLES // TRAIN_BZ
+    if sorted(s for (r, s) in by if r == "resumed") != list(
+            range(nxt, packed_steps + 1)):
+        raise AssertionError(f"the resumed run did not start at step {nxt}")
+    flat = _step_times(records, [f"curriculum_iter{i}" for i in (1, 2, 3)])
+    packed = _step_times(records, ["packed", "resumed"],
+                         saved={("packed", RESUME_STEP)})
+    res = {"curriculum_s": t_cur, "packed_s": t_pack, "resume_s": t_res,
+           "flat_step_ms": float(np.median(flat)) * 1e3,
+           "packed_step_ms": float(np.median(packed)) * 1e3,
+           "flat_steps_ms": [x * 1e3 for x in flat],
+           "packed_steps_ms": [x * 1e3 for x in packed],
+           "resume_loss_equal": resumed == straight,
+           "losses": {f"{r['run']}:{r['step']}": r["loss"] for r in records},
+           "grad_norms": [r["grad_norm"] for r in records]}
+    for kind in ("flat", "packed"):
+        res[f"{kind}_examples_per_s"] = TRAIN_BZ / res[f"{kind}_step_ms"] * 1e3
+    profiles = _profile_steps(ctx, ctx["corpus"], files["8"])
+    for kind, prof in profiles.items():
+        res[f"{kind}_profile"] = prof
+        log(f"[train] {kind} step, profiled ({prof['passage_rows']} passage "
+            f"rows of {TRAIN_LP}): {prof['wall_ms_per_step']:.1f} ms wall, "
+            f"{prof['device_ms_per_step']:.1f} ms of kernels (idle share "
+            f"{prof['idle_share']:.3f}): " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in sorted(
+                    prof["by_class_ms"].items(), key=lambda kv: -kv[1])))
+        for name, ms in prof["top_kernels_ms"].items():
+            log(f"[train]   {ms:8.3f} ms  {name[:110]}")
+    ctx["train"] = res
+    ctx["trained_ckpt"] = latest_checkpoint(
+        os.path.join(runs, "curriculum_iter3"))
+    log(f"[train] cli.curriculum, 3 iterations x {TRAIN_EXAMPLES // TRAIN_BZ}"
+        f" steps (bz {TRAIN_BZ}, nway {NWAY}, Lq {TRAIN_LQ}, Lp {TRAIN_LP}, "
+        f"bf16, dropout 0.1, flat): {t_cur:.1f} s, {k3_flat} K3 launches; "
+        f"cli.train --pack-passages: {t_pack:.1f} s; resume from step "
+        f"{RESUME_STEP}: {t_res:.1f} s, step {nxt} loss {resumed!r} "
+        f"{'EQUAL to' if resumed == straight else 'within 1e-6 of'} the "
+        f"uninterrupted run's {straight!r}")
+    log(f"[train] step: flat {res['flat_step_ms']:.1f} ms "
+        f"({res['flat_examples_per_s']:.1f} examples/s), packed "
+        f"{res['packed_step_ms']:.1f} ms ({res['packed_examples_per_s']:.1f} "
+        f"examples/s); median over {len(flat)} and {len(packed)} steps; "
+        f"{len(records)} steps, every loss and grad norm finite")
+
+
+def phase_pipeline(ctx):
+    from cldrd_tpu_torch.cli import evaluate as cli_evaluate
+    from cldrd_tpu_torch.cli import index as cli_index
+    from cldrd_tpu_torch.cli import retrieve as cli_retrieve
+    from cldrd_tpu_torch.ops import extract_topk as k1_mod
+
+    work = os.path.join(WORK, "pipeline")
+    n_pass, n_q = N_PIPELINE, N_QUERIES
+    paths = ctx["corpus"]
+    ckpt = ctx["trained_ckpt"]  # the curriculum's last checkpoint
     common = ["--checkpoint", ckpt, "--tokenizer", "hash", "--device", "cuda"]
     idx = os.path.join(work, "index")
     lines, t_index = _call_cli(cli_index.main, [
         "--collection", paths["collection"], "--out", idx,
-        "--max-length", "256", "--batch-size", "512", *common])
+        "--max-length", str(TRAIN_LP), "--batch-size", "512", *common])
     enc = json.loads(lines[-1])
     log(f"[pipeline] index: {n_pass} passages at DistilBERT-base width: "
         f"encode {enc['passages_per_s']:.1f} passages/s "
@@ -606,9 +1017,9 @@ def phase_pipeline(ctx):
         k1_before = k1_mod.LAUNCHES
         lines, t_ret = _call_cli(cli_retrieve.main, [
             "--index", idx, "--queries", paths["queries"], "--run", run,
-            "--topk", str(k), "--max-length", "30",
+            "--topk", str(k), "--max-length", str(TRAIN_LQ),
             "--search-batch-size", str(SEARCH_BATCH), "--hbm-dtype", hbm,
-            *common])
+            "--attention-impl", "pallas", *common])
         stats = json.loads(lines[-1])
         _check_run_file(run, n_q, k, n_pass)
         metrics = json.loads("\n".join(_call_cli(cli_evaluate.main, [
@@ -644,16 +1055,56 @@ def smi_line():
         return f"nvidia-smi unavailable: {e}"
 
 
-def _kernel_record(ctx, name, src, ref, tag, launches):
+def _kernel_record(ctx, name, src, ref, tag, launches, err):
     t = ctx["timings"][name][tag]
-    return {
+    rec = {
         "name": name, "route": "cuda", "source": src, "replaces": ref,
-        "launches": launches,
-        "max_abs_err": ctx["k1_err" if name == "extract_topk" else "k2_err"],
+        "launches": launches, "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-        "bound_by": t["bound"][1], "library_ms": None,
-        "matmul_ms": t["matmul_ms"], "shape": tag,
+        "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
+        "shape": tag,
     }
+    if "matmul_ms" in t:
+        rec["matmul_ms"] = t["matmul_ms"]
+    return rec
+
+
+# (record name, counter, source, TPU kernel, timed shape, error key)
+KERNELS = [
+    ("extract_topk", ("extract_topk", None), "csrc/extract_topk.cu",
+     "cldrd_tpu/search/mips.py:605", "int8_full", "k1_err"),
+    ("fused_binmax", ("fused_binmax", None), "csrc/fused_binmax.cu",
+     "cldrd_tpu/search/mips.py:361", "bf16_1M", "k2_err"),
+    ("attention_train_fwd", ("attention", "train_fwd"), "csrc/attention.cu",
+     "cldrd_tpu/ops/attention.py:204", "train", "attn_err_bf16"),
+    ("attention_train_bwd", ("attention", "train_bwd"), "csrc/attention.cu",
+     "cldrd_tpu/ops/attention.py:257", "train", "attn_err_bf16"),
+    ("attention_infer", ("attention", "infer"), "csrc/attention.cu",
+     "cldrd_tpu/ops/attention.py:61", "encode", "attn_err_bf16"),
+]
+
+
+def _counters():
+    from cldrd_tpu_torch.ops import attention, extract_topk, fused_binmax
+
+    return {"extract_topk": extract_topk, "fused_binmax": fused_binmax,
+            "attention": attention}
+
+
+def reset_launches():
+    for mod in _counters().values():
+        if isinstance(mod.LAUNCHES, dict):
+            for key in mod.LAUNCHES:
+                mod.LAUNCHES[key] = 0
+        else:
+            mod.LAUNCHES = 0
+
+
+def read_launches():
+    mods = _counters()
+    return {name: (mods[m].LAUNCHES if key is None
+                   else mods[m].LAUNCHES[key])
+            for name, (m, key), *_ in KERNELS}
 
 
 def main(argv=None) -> int:
@@ -666,9 +1117,6 @@ def main(argv=None) -> int:
         log("chip_smoke: CUDA is not available")
         return 2
     dev = torch.device("cuda", 0)
-    from cldrd_tpu_torch.ops import extract_topk as k1_mod
-    from cldrd_tpu_torch.ops import fused_binmax as k2_mod
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     ctx = {"dev": dev, "gen": gen, "seed": args.seed}
@@ -687,14 +1135,14 @@ def main(argv=None) -> int:
     run("kernels", phase_kernels)
     stores = run("prepare", prepare_search)
     # the counted window: every kernel launch of the main path
-    k1_mod.LAUNCHES = 0
-    k2_mod.LAUNCHES = 0
+    reset_launches()
     run("search", phase_search, *stores)
     del stores
     torch.cuda.empty_cache()
+    run("train", phase_train)
+    torch.cuda.empty_cache()
     run("pipeline", phase_pipeline)
-    launches = {"extract_topk": k1_mod.LAUNCHES,
-                "fused_binmax": k2_mod.LAUNCHES}
+    launches = read_launches()
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -703,19 +1151,14 @@ def main(argv=None) -> int:
     # every measurement of the run, unrounded, on one line
     log("results " + json.dumps({
         k: ctx.get(k) for k in ("timings", "search_layer_ms", "search",
-                                "pipeline", "k1_err", "k2_err", "k1_checked",
-                                "build_s")}))
+                                "train", "pipeline", "k1_err", "k2_err",
+                                "attn_err_fp32", "attn_err_bf16",
+                                "k1_checked", "build_s")}))
     log(smi_line())
     log(json.dumps({"kernels": [
-        _kernel_record(ctx, "extract_topk",
-                       "cldrd_tpu_torch/csrc/extract_topk.cu",
-                       "cldrd_tpu/search/mips.py:605", "int8_full",
-                       launches["extract_topk"]),
-        _kernel_record(ctx, "fused_binmax",
-                       "cldrd_tpu_torch/csrc/fused_binmax.cu",
-                       "cldrd_tpu/search/mips.py:361", "bf16_1M",
-                       launches["fused_binmax"]),
-    ]}))
+        _kernel_record(ctx, name, f"cldrd_tpu_torch/{src}", ref, tag,
+                       launches[name], ctx[err])
+        for name, _, src, ref, tag, err in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
 """Shared CLI plumbing: tokenizer/model construction, logging (port of
-``cldrd_tpu/cli/common.py`` for the retrieval path)."""
+``cldrd_tpu/cli/common.py``)."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -28,31 +29,61 @@ def setup_logging(verbose: bool = True) -> None:
     )
 
 
+# fields of the reference's DistilBertConfig the port does not implement
+# yet, with their defaults; a config that sets another value raises
+UNPORTED = {"fused_qkv": False, "softmax_in_compute_dtype": False,
+            "remat": False, "remat_policy": "full"}
+
+
 def model_config_from_args(args: argparse.Namespace) -> DistilBertConfig:
+    """``--model-config`` (JSON file or inline JSON; the reference's keys)
+    or ``--model-size``, then ``--attention-impl``, ``--dropout`` and
+    ``--attention-dropout`` where given."""
     spec = getattr(args, "model_config", None)
     if spec:
-        # JSON file path or inline JSON dict of config overrides
         if os.path.exists(spec):
             with open(spec) as f:
                 overrides = json.load(f)
         else:
             overrides = json.loads(spec)
-        # a reference config may name its attention route; every route
-        # computes the same function, and the port has the einsum one only
-        overrides.pop("attention_impl", None)
-        return DistilBertConfig(**overrides)
-    if getattr(args, "model_size", "full") == "tiny":
-        return DistilBertConfig.tiny()
-    return DistilBertConfig()
+        for key, default in UNPORTED.items():
+            value = overrides.pop(key, default)
+            if value != default:
+                raise NotImplementedError(
+                    f"model config {key}={value!r}: not ported yet")
+        cfg = DistilBertConfig(**overrides)
+    elif getattr(args, "model_size", "full") == "tiny":
+        cfg = DistilBertConfig.tiny()
+    else:
+        cfg = DistilBertConfig()
+    flags = {"attention_impl": getattr(args, "attention_impl", None),
+             "dropout": getattr(args, "dropout", None),
+             "attention_dropout": getattr(args, "attention_dropout", None)}
+    return dataclasses.replace(
+        cfg, **{k: v for k, v in flags.items() if v is not None})
 
 
-def add_model_args(p: argparse.ArgumentParser) -> None:
+def add_model_args(p: argparse.ArgumentParser, train: bool = False) -> None:
+    """The model flags of every CLI; ``train`` adds the dropout rates."""
     p.add_argument("--model-size", choices=("full", "tiny"), default="full",
                    help="'tiny' is the hermetic test configuration")
     p.add_argument("--model-config", default=None,
                    help="config overrides as a JSON file path or inline "
                         "JSON (takes precedence over --model-size)")
-    p.add_argument("--share-weights", action="store_true", default=False,
+    p.add_argument("--attention-impl", choices=("auto", "xla", "pallas"),
+                   default=None,
+                   help="'auto' (default): the CUDA attention kernels when "
+                        "training with attention dropout on the card, the "
+                        "einsum form elsewhere; 'pallas' forces the kernels "
+                        "(K3/K4 in training, K5 otherwise), 'xla' the "
+                        "einsum form")
+    if train:
+        p.add_argument("--dropout", type=float, default=None,
+                       help="hidden dropout (default: the model config's)")
+        p.add_argument("--attention-dropout", type=float, default=None,
+                       help="attention-probs dropout (default: the "
+                            "config's)")
+    p.add_argument("--share-weights", action="store_true", default=None,
                    help="one tower for queries and passages")
     p.add_argument("--tokenizer", default="hash",
                    help="'hash' (hermetic) or an HF tokenizer name/path")
@@ -91,6 +122,7 @@ def load_dual_encoder(checkpoint: Optional[str], cfg: DistilBertConfig,
     reference ``.pth.tar`` checkpoint or, without one, a random init from
     ``seed``."""
     dev = resolve_device(device)
+    share_weights = bool(share_weights)
     model = NwayDualEncoder(cfg, share_weights=share_weights,
                             apply_cosine_similarity=cosine, dtype=dtype)
     if checkpoint:

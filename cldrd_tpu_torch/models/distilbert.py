@@ -13,22 +13,75 @@ encoder:
 - GELU is the exact (erf) form;
 - LayerNorm has eps 1e-12 and takes its statistics in fp32;
 - ``cls_only`` on the last block computes position 0 only: a one-row
-  query, residual and FFN.
+  query, residual and FFN;
+- packed rows (``data/packing.py``) take ``position_ids`` (per-segment
+  position reset) and ``segment_ids`` (attention within a segment only).
 
-Attention is the einsum form, which is what the reference's ``'auto'``
-picks for encoding.
+Training mode is a ``DropoutRNG`` passed to ``forward``: hidden and
+attention-probs dropout draw from its explicit generator, never from the
+global RNG. ``attention_impl`` takes the reference's values: 'xla' is
+the einsum form, 'pallas' the port's CUDA kernels (``ops/attention.py``:
+K3/K4 in training with attention dropout, K5 otherwise), 'auto' the
+kernels when training with attention dropout on the card and the einsum
+form everywhere else (``resolve_attention_impl``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cldrd_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_train,
+)
+
 # masked attention logit; softmax subtracts the row max, so this fully
 # suppresses masked positions without inf - inf
 NEG_INF = -1e9
+
+
+def resolve_attention_impl(impl: str, train_mode: bool,
+                           device: torch.device) -> str:
+    """'auto' -> 'pallas' (the CUDA kernels) when training with attention
+    dropout on a CUDA device, else 'xla' (the einsum form), as the
+    reference resolves it for the TPU. 'xla' and 'pallas' stand."""
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"attention_impl {impl!r} (auto | xla | pallas)")
+    if impl != "auto":
+        return impl
+    return "pallas" if train_mode and device.type == "cuda" else "xla"
+
+
+class DropoutRNG:
+    """The dropout randomness of one training step, from ``(seed, step)``
+    as the reference's ``fold_in(PRNGKey(seed), step)``: a generator on
+    ``device`` for hidden and attention-probs masks, and a host stream of
+    int32 seeds for the attention kernels' hash (drawn without a device
+    sync). A resumed run replays the same masks."""
+
+    def __init__(self, seed: int, step: int, device):
+        mixed = np.random.SeedSequence([int(seed) & 0xFFFFFFFF,
+                                        int(step) & 0xFFFFFFFF])
+        words = mixed.generate_state(3)
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(int(words[0]) << 32 | int(words[1]))
+        self._host = np.random.default_rng(int(words[2]))
+
+    def next_seed(self) -> int:
+        return int(self._host.integers(-2**31, 2**31, dtype=np.int64))
+
+    def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        """flax ``Dropout``: keep with probability 1-p, scale by 1/(1-p)."""
+        if p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= p
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +98,8 @@ class DistilBertConfig:
     attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
+    # 'auto' | 'xla' | 'pallas', as in the reference (resolve_attention_impl)
+    attention_impl: str = "auto"
 
     @classmethod
     def tiny(cls, **overrides) -> "DistilBertConfig":
@@ -84,7 +139,9 @@ class Embeddings(nn.Module):
             config.max_position_embeddings, config.dim)
         self.LayerNorm = LayerNorm(config.dim, eps=config.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         seq_len = input_ids.shape[-1]
         if seq_len > self.config.max_position_embeddings:
             raise ValueError(
@@ -92,9 +149,16 @@ class Embeddings(nn.Module):
                 f"max_position_embeddings="
                 f"{self.config.max_position_embeddings}; lower --max-length "
                 "(the 'tiny' config supports 64)")
-        word = self.word_embeddings.weight.to(self.dtype)[input_ids]
-        pos = self.position_embeddings.weight[:seq_len].to(self.dtype)
-        return self.LayerNorm(word + pos[None])
+        # gather from the fp32 tables, then cast: the values of the
+        # reference's cast-then-gather, and a backward that accumulates
+        # the sparse table gradient in fp32 (embedding_dense_backward)
+        word = F.embedding(input_ids, self.word_embeddings.weight)
+        table = self.position_embeddings.weight
+        pos = table[:seq_len][None] if position_ids is None else \
+            F.embedding(position_ids, table)
+        hidden = self.LayerNorm(word.to(self.dtype) + pos.to(self.dtype))
+        return hidden if rng is None else rng.dropout(hidden,
+                                                      self.config.dropout)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -108,6 +172,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.out_lin = nn.Linear(config.dim, config.dim)
 
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None,
                 cls_only: bool = False) -> torch.Tensor:
         cfg, dt = self.config, self.dtype
         bsz, seq_len, _ = hidden.shape
@@ -120,15 +186,34 @@ class MultiHeadSelfAttention(nn.Module):
                                                  head_dim)
         v = _linear(hidden, self.v_lin, dt).view(bsz, seq_len, cfg.n_heads,
                                                  head_dim)
-        # HF parity: scale Q (not the logits), in the compute dtype
-        q = q / torch.sqrt(torch.tensor(head_dim, dtype=dt,
-                                        device=hidden.device))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        mask = attention_mask[:, None, None, :].bool()
-        scores = torch.where(mask, scores, torch.tensor(
-            NEG_INF, dtype=scores.dtype, device=scores.device))
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        context = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        # the kernels take every block but a cls_only final one (its q is
+        # one row), as in the reference
+        train_mode = rng is not None and cfg.attention_dropout != 0.0
+        impl = resolve_attention_impl(cfg.attention_impl, train_mode,
+                                      hidden.device)
+        use_kernel = impl == "pallas" and not cls_only
+        if use_kernel and train_mode:
+            context = flash_attention_train(
+                q, k, v, attention_mask, rng.next_seed(),
+                cfg.attention_dropout, segment_ids)
+        elif use_kernel and segment_ids is None:
+            context = flash_attention(q, k, v, attention_mask)
+        else:
+            # HF parity: scale Q (not the logits), in the compute dtype
+            q = q / torch.sqrt(torch.tensor(head_dim, dtype=dt,
+                                            device=hidden.device))
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            mask = attention_mask[:, None, None, :].bool()
+            if segment_ids is not None:
+                seg_q = segment_ids[:, :1] if cls_only else segment_ids
+                mask = mask & (seg_q[:, None, :, None]
+                               == segment_ids[:, None, None, :])
+            scores = torch.where(mask, scores, torch.tensor(
+                NEG_INF, dtype=scores.dtype, device=scores.device))
+            probs = torch.softmax(scores, dim=-1).to(dt)
+            if rng is not None:
+                probs = rng.dropout(probs, cfg.attention_dropout)
+            context = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return _linear(context.reshape(bsz, q_len, cfg.dim), self.out_lin, dt)
 
 
@@ -147,6 +232,7 @@ class FFN(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, config: DistilBertConfig, dtype=torch.float32):
         super().__init__()
+        self.p = config.dropout
         self.attention = MultiHeadSelfAttention(config, dtype)
         self.sa_layer_norm = LayerNorm(config.dim, eps=config.layer_norm_eps)
         self.ffn = FFN(config, dtype)
@@ -154,11 +240,19 @@ class TransformerBlock(nn.Module):
                                            eps=config.layer_norm_eps)
 
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None,
                 cls_only: bool = False) -> torch.Tensor:
-        sa_out = self.attention(hidden, attention_mask, cls_only)
+        sa_out = self.attention(hidden, attention_mask, segment_ids, rng,
+                                cls_only)
+        if rng is not None:
+            sa_out = rng.dropout(sa_out, self.p)
         residual = hidden[:, :1] if cls_only else hidden
         hidden = self.sa_layer_norm(sa_out + residual)
-        return self.output_layer_norm(self.ffn(hidden) + hidden)
+        ffn = self.ffn(hidden)
+        if rng is not None:
+            ffn = rng.dropout(ffn, self.p)
+        return self.output_layer_norm(ffn + hidden)
 
 
 class Transformer(nn.Module):
@@ -180,11 +274,17 @@ class DistilBertEncoder(nn.Module):
         self.transformer = Transformer(config, dtype)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                cls_only: bool = False) -> torch.Tensor:
-        hidden = self.embeddings(input_ids)
+                cls_only: bool = False,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """``rng`` set = training mode (dropout on); ``position_ids`` /
+        ``segment_ids`` [B, L]: packed rows."""
+        hidden = self.embeddings(input_ids, position_ids, rng)
         n = len(self.transformer.layer)
         for i, block in enumerate(self.transformer.layer):
-            hidden = block(hidden, attention_mask, cls_only and i == n - 1)
+            hidden = block(hidden, attention_mask, segment_ids, rng,
+                           cls_only and i == n - 1)
         return hidden
 
     @torch.no_grad()

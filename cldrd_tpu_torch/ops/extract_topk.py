@@ -11,7 +11,8 @@ PyTorch version: the CPU path, and what the kernel is held to on the card.
 For each 2048-row super-block and query, with R level-1 rounds and R2
 level-2 rounds:
 
-- level 1: each 128-row bin gives R-1 (value, position) candidates by
+- level 1: each bin of ``bin_rows`` rows (a power of two from 8 to 256,
+  as the extract route admits) gives R-1 (value, position) candidates by
   rounds of max, lowest-row argmax among equal values, and mask; the R-th
   round's max is the bin's remainder bound, max-reduced over the
   super-block (``rem1``);
@@ -110,9 +111,10 @@ def extract_topk(queries: torch.Tensor, corpus: torch.Tensor,
                          f"of {SUPER_ROWS}")
     if bz % 64 or bz == 0:
         raise ValueError(f"extract_topk: batch {bz} must be a multiple of 64")
-    if bin_rows != 128:
-        raise ValueError(f"extract_topk: the CUDA kernel takes bin_rows=128 "
-                         f"(got {bin_rows})")
+    if bin_rows not in (8, 16, 32, 64, 128, 256) or (bz > 512
+                                                     and bin_rows > 128):
+        raise ValueError(f"extract_topk: bin_rows={bin_rows} (powers of two "
+                         "8..256, 8..128 above batch 512)")
     if not 2 <= rounds <= 7 or not 1 <= rounds2 <= 16:
         raise ValueError(f"extract_topk: rounds={rounds} (2..7), "
                          f"rounds2={rounds2} (1..16)")
@@ -126,12 +128,12 @@ def extract_topk(queries: torch.Tensor, corpus: torch.Tensor,
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int],
         queries.data_ptr(), _build.dtype_code(queries.dtype),
         corpus.data_ptr(), _build.dtype_code(corpus.dtype),
         row_ids.data_ptr(), None if scales is None else scales.data_ptr(),
         out_v.data_ptr(), out_p.data_ptr(), out_r.data_ptr(), bz, nsup, d,
-        rounds, rounds2, device=dev)
+        rounds, rounds2, bin_rows, device=dev)
     global LAUNCHES
     LAUNCHES += 1
     return out_v, out_p, out_r

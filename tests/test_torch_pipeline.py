@@ -140,7 +140,12 @@ def test_tokenizer_and_dataset_batches_match_reference(tmp_path):
 
 
 def test_cli_rejects_flags_of_later_slices():
-    for argv in (["--shards", "2"], ["--attention-impl", "pallas"],
+    # --attention-impl came back with the training slice (K5 encodes)
+    args = t_retrieve.build_parser().parse_args(
+        ["--index", "i", "--queries", "q", "--run", "r",
+         "--attention-impl", "pallas"])
+    assert args.attention_impl == "pallas"
+    for argv in (["--shards", "2"], ["--dropout", "0.1"],
                  ["--profile-dir", "x"], ["--arch", "bert"]):
         with pytest.raises(SystemExit):
             t_retrieve.build_parser().parse_args(

@@ -128,6 +128,46 @@ def test_extract_kernel_outputs_match_jax_kernel(monkeypatch):
     assert tv.shape == (bz, nsup, R2)
 
 
+@pytest.mark.parametrize("bin_rows", [64, 256])
+def test_extract_kernel_outputs_match_jax_kernel_at_other_bins(
+        bin_rows, monkeypatch):
+    """K1's plain version at the other bin sizes the extract route admits
+    (64 and 256 at batch 128) against the Pallas kernel's raw outputs."""
+    from jax.experimental import pallas as pl
+
+    captured = {}
+    real = pl.pallas_call
+
+    def spy(*a, **kw):
+        fn = real(*a, **kw)
+
+        def run(*ops):
+            out = fn(*ops)
+            captured["out"] = [np.asarray(x) for x in out]
+            return out
+        return run
+
+    monkeypatch.setattr(jmips, "_INTERPRET", True)
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    rng = np.random.default_rng(6)
+    bz, n, d, k = 128, 4096, 32, 20
+    assert mips._extract_eligible(bz, n, bin_rows)
+    q, c = _int_data(rng, bz, n, d)
+    ids = np.arange(n, dtype=np.int32)
+    ids[100:140] = -1
+    jmips._binmax_segment_extract(jnp.asarray(q), jnp.asarray(c),
+                                  jnp.asarray(ids), k, bin_rows,
+                                  on_miss="flag")
+    sup_v, sup_p, rem1 = captured["out"]
+    R = mips._extract_rounds(n, bz, k, bin_rows)
+    tv, tp, tr = k1.extract_topk(torch.from_numpy(q), torch.from_numpy(c),
+                                 torch.from_numpy(ids), R, sup_v.shape[1],
+                                 bin_rows)
+    np.testing.assert_array_equal(tv.numpy(), sup_v.transpose(2, 0, 1))
+    np.testing.assert_array_equal(tp.numpy(), sup_p.transpose(2, 0, 1))
+    np.testing.assert_array_equal(tr.numpy(), rem1.max(1).T)
+
+
 class TestAdversarial:
     """The clustered corpora of tests/test_index_search.py:216 and :961."""
 
