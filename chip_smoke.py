@@ -18,8 +18,12 @@ Phases (each raises on any failure; the script then exits non-zero):
    tower's B=240, L=256, the query tower's B=8, L=30, packed rows with
    segments, the query encode's B=512, L=30; dropout 0.1, one seed):
    outputs and dq/dk/dv within 1e-5 of the largest magnitude in fp32 and
-   2e-2 in bf16. Each kernel is timed against its plain version, its
-   bound and, for attention, scaled_dot_product_attention.
+   2e-2 in bf16. K6 at the full-corpus serving store (8,388,608 x 768
+   int8 with scales, slot 2,048) with B=8 and B=128, P=32, at 1,048,576
+   bf16 rows with B=8, and with duplicate probes: EQUAL on
+   integer-valued inputs, within 1e-5 on normal data. Each kernel is
+   timed against its plain version, its bound and, for attention,
+   scaled_dot_product_attention (K6: a gather + bf16 bmm, no one call).
 3. search: FlatIPIndex stood up on the device at MS MARCO scale
    (8,847,360 x 768 int8 with scales, then 1,048,576 x 768 bf16). K1 is
    first held to its plain version at the int8 store's own shape (EQUAL
@@ -40,10 +44,26 @@ Phases (each raises on any failure; the script then exits non-zero):
 5. pipeline: the CLIs index -> retrieve -> evaluate with the trained
    checkpoint over the train phase's 32,768 passages at --max-length 256
    and 1,024 queries at 30; the retrieves encode queries with
-   --attention-impl pallas (K5).
+   --attention-impl pallas (K5); the index call also builds an IVF
+   companion (--ivf-nlist 16).
+6. serve: a clustered 1,048,576 x 768 int8 store (from --seed) gets an
+   IVF companion from cli.index --ivf-only (512 cells, slot 2,048, nprobe
+   32), and cli.serve --ivf --hbm-dtype int8 serves it with the trained
+   checkpoint: 8 client threads send 64 /search requests of 1-8 queries
+   at k=1000. Every answer must EQUAL IVFIndex.search of the same query
+   embeddings (ids and scores); at full probe answers agree with the exact
+   oracle, and integer-valued queries EQUAL it. Prints recall@10 at
+   nprobe 32 against the oracle (for the served queries and for queries
+   drawn from the store's own distribution), QPS, p50/p99, requests
+   against device batches and one pass's time by stage; runs /add,
+   /remove, /save and /reload once each. A flat-mode
+   daemon and an IVFPQ (96 x 4-bit) daemon with --refine-factor 4 each
+   answer a few requests, EQUAL to their direct search.
 
-Kernel launch counts are set to 0 just before phase 3 and read just
-after phase 5; a kernel of the path with no launch there fails the run.
+Phases 3-6 drive the port's four paths (search, train, pipeline,
+serve). Kernel launch counts are set to 0 just before each and read just
+after it: a kernel its path must reach with no launch there fails the
+run, and the kernels line sums the four windows.
 The second-to-last line is one JSON object with every kernel's launches,
 error, times and bound; the line before it is the card's name and power
 limit from nvidia-smi; the last line is the result object.
@@ -58,7 +78,10 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -87,6 +110,12 @@ TIMED_BATCHES = 64   # distinct query batches in each store's QPS window
 INT_BATCHES = 4      # integer-valued batches per store (exactness, rescues)
 ORACLE_SAMPLE = 32
 RAGGED = 200         # a batch K1 does not take: the portable route
+IVF_NB, IVF_SLOT, IVF_P = 4096, 2048, 32  # full-corpus serving store (K6)
+IVF_BF16_NB = 512                         # 1,048,576 bf16 rows (K6)
+SERVE_ROWS, SERVE_CENTERS = 1_048_576, 1024
+SERVE_NLIST, SERVE_NPROBE = 512, 32
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 64
+SERVE_PQ_M = 96                           # 96 x 4-bit codes: 48 bytes a row
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -352,6 +381,123 @@ def phase_kernels(ctx):
     q = make_queries(SEARCH_BATCH, D, bf16, dev, gen, False)
     _time_kernels(ctx, "bf16_1M", q, st.c, st.ids, None, k2=True)
     del st, q
+    torch.cuda.empty_cache()
+    _ivf_probe_checks(ctx)
+    torch.cuda.empty_cache()
+
+
+def _compare_k6(ctx, tag, q, rows, probe, scales, integer):
+    from cldrd_tpu_torch.ops import ivf_probe as k6
+
+    tag = (f"K6 {tag} B={q.shape[0]} P={probe.shape[1]} "
+           f"rows={rows.shape[0]} {str(rows.dtype)[6:]}"
+           f"{' scaled' if scales is not None else ''} "
+           f"{'int' if integer else 'normal'}")
+    got = k6.probe_scores(q, rows, probe, scales, slot=IVF_SLOT)
+    ref = k6.probe_scores_plain(q, rows, probe, scales, slot=IVF_SLOT)
+    if integer:
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"{tag}: {bad} scores differ on "
+                                 "integer-valued inputs")
+        err = 0.0
+    else:
+        err = _close(tag, got, ref)
+    log(f"[kernels] {tag}: {'EQUAL' if integer else 'agrees'}, max_abs_err "
+        f"{err:.3g}")
+    ctx["k6_err"] = max(ctx.get("k6_err", 0.0), err)
+
+
+def _k6_bytes(q, rows, probe, scaled):
+    """Bytes K6 must move on these inputs: each probed bucket's rows (and
+    scales) read once however many queries probe it, the queries, the
+    probes and the fp32 output written once."""
+    nb_read = int(torch.unique(probe).numel())
+    per_bucket = IVF_SLOT * rows.shape[1] * rows.element_size()
+    b, p = probe.shape
+    return (nb_read * (per_bucket + (4 * IVF_SLOT if scaled else 0))
+            + q.numel() * q.element_size() + 4 * b * p
+            + 4 * b * p * IVF_SLOT), nb_read
+
+
+def _time_k6(ctx, tag, q, rows, probe, scales):
+    """K6, its plain version, and a gather + bmm of the probed rows (no
+    single PyTorch call computes K6's function) on the same inputs."""
+    from cldrd_tpu_torch.ops import ivf_probe as k6
+
+    b, p = probe.shape
+    lane = torch.arange(IVF_SLOT, device=q.device)
+    rowix = (probe.long()[:, :, None] * IVF_SLOT + lane).reshape(b, -1)
+    qb = q.to(torch.bfloat16)[:, :, None]
+
+    def gather_bmm():
+        s = torch.bmm(rows[rowix].to(torch.bfloat16), qb)[..., 0]
+        if scales is not None:
+            s = s * scales[probe.long()].reshape(b, -1)
+        return s
+
+    nbytes, nb_read = _k6_bytes(q, rows, probe, scales is not None)
+    ops = 2 * b * p * IVF_SLOT * rows.shape[1]
+    r = dict(
+        ms=time_ms(lambda: k6.probe_scores(q, rows, probe, scales,
+                                           slot=IVF_SLOT), reps=20),
+        plain_ms=time_ms(lambda: k6.probe_scores_plain(
+            q, rows, probe, scales, slot=IVF_SLOT), reps=1),
+        gather_bmm_ms=time_ms(gather_bmm, reps=3),
+        bound=bound_ms(nbytes, ops, "bf16"), bytes=nbytes,
+        buckets_read=nb_read, B=b, P=p, rows=rows.shape[0],
+        bytes_per_pair=b * p * IVF_SLOT * rows.shape[1] * rows.element_size())
+    r["library_note"] = f"none (gather + bmm: {r['gather_bmm_ms']} ms)"
+    ctx.setdefault("timings", {}).setdefault("ivf_probe", {})[tag] = r
+    torch.cuda.empty_cache()
+    log(f"[time] ivf_probe {tag} B={b} P={p} rows={rows.shape[0]}: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, gather+bmm "
+        f"{r['gather_bmm_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}; {nb_read} distinct buckets, {nbytes} bytes)")
+
+
+def _ivf_probe_checks(ctx):
+    """K6 at the full-corpus serving store (8,388,608 x 768 int8 with
+    scales: 6.44e9 elements, so row offsets need 64 bits) at B=8 and the
+    serve encode batch B=128, and at a 1,048,576-row bf16 store without
+    scales at B=8; P=32 probes from the generator; duplicate probes."""
+    dev, gen = ctx["dev"], ctx["gen"]
+    bf16 = torch.bfloat16
+    rows = torch.randint(-127, 128, (IVF_NB * IVF_SLOT, D), generator=gen,
+                         device=dev, dtype=torch.int8)
+    scales = (torch.rand(IVF_NB, IVF_SLOT, generator=gen, device=dev)
+              + 0.5) / 127
+
+    def probes(b, nb):
+        return torch.randint(0, nb, (b, IVF_P), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for b in (8, 128):
+        pr = probes(b, IVF_NB)
+        _compare_k6(ctx, "int8_full", make_queries(b, D, bf16, dev, gen,
+                                                   True), rows, pr, scales,
+                    True)
+        q = make_queries(b, D, bf16, dev, gen, False)
+        _compare_k6(ctx, "int8_full", q, rows, pr, scales, False)
+        _time_k6(ctx, f"int8_full_b{b}", q, rows, pr, scales)
+    dup = probes(8, IVF_NB)
+    dup[:, 1::2] = dup[:, 0::2]            # every probe repeated once
+    dup[:, -1] = IVF_NB - 1                # the store's last bucket
+    _compare_k6(ctx, "int8_full dup", make_queries(8, D, bf16, dev, gen,
+                                                   True), rows, dup, scales,
+                True)
+    del rows, scales
+    torch.cuda.empty_cache()
+    nrows = IVF_BF16_NB * IVF_SLOT
+    rows = torch.randint(-32, 33, (nrows, D), generator=gen, device=dev,
+                         dtype=torch.int8).to(bf16) / 16
+    pr = probes(8, IVF_BF16_NB)
+    _compare_k6(ctx, "bf16_1M", make_queries(8, D, bf16, dev, gen, True),
+                rows, pr, None, True)
+    q = make_queries(8, D, bf16, dev, gen, False)
+    _compare_k6(ctx, "bf16_1M", q, rows, pr, None, False)
+    _time_k6(ctx, "bf16_1M_b8", q, rows, pr, None)
+    del rows
 
 
 def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
@@ -1004,12 +1150,22 @@ def phase_pipeline(ctx):
     idx = os.path.join(work, "index")
     lines, t_index = _call_cli(cli_index.main, [
         "--collection", paths["collection"], "--out", idx,
-        "--max-length", str(TRAIN_LP), "--batch-size", "512", *common])
+        "--max-length", str(TRAIN_LP), "--batch-size", "512",
+        "--ivf-nlist", "16", *common])
     enc = json.loads(lines[-1])
+    from cldrd_tpu_torch.index import IVFIndex
+
+    ivf = IVFIndex.load(os.path.join(idx, "ivf"), device=ctx["dev"])
+    if ivf.n_vectors != n_pass or enc["ivf_buckets"] != ivf.n_buckets:
+        raise AssertionError(f"the pipeline's IVF companion holds "
+                             f"{ivf.n_vectors} of {n_pass} passages")
+    del ivf
     log(f"[pipeline] index: {n_pass} passages at DistilBERT-base width: "
         f"encode {enc['passages_per_s']:.1f} passages/s "
         f"({enc['encode_s']:.3f} s, host tokenization included), "
-        f"{t_index:.1f} s for the whole CLI")
+        f"{t_index:.1f} s for the whole CLI; IVF companion "
+        f"{enc['ivf_buckets']} buckets x {enc['ivf_slot']} in "
+        f"{enc['ivf_build_s']:.1f} s")
     results = {"index_s": t_index, **enc}
     for hbm, k in (("bfloat16", K), ("int8", K),
                    ("bfloat16", K_PIPELINE_EXTRACT)):
@@ -1040,7 +1196,375 @@ def phase_pipeline(ctx):
     if results[f"bfloat16_k{K_PIPELINE_EXTRACT}"]["extract_topk_launches"] <= 0:
         raise AssertionError("pipeline retrieve launched no extract_topk")
     ctx["pipeline"] = results
+
+
+# ------------------------------------------------------------------ serve
+
+# the daemons answer on localhost only; no proxy from the environment
+_HTTP = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _http(url, path, payload=None, timeout=600):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with _HTTP.open(req, timeout=timeout) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:  # the service's own message
+        raise AssertionError(f"{path}: HTTP {e.code}: {e.read()[:2000]!r}")
+
+
+class _Daemon:
+    """cli.serve in this process on a free port, served from a thread.
+    ``passes`` records every device pass: its texts, query embeddings and
+    the index's answer, through wrappers on the service's own pass and on
+    its index's search; ``search`` is the index's unwrapped search."""
+
+    def __init__(self, argv):
+        from cldrd_tpu_torch.cli import serve as cli_serve
+
+        args = cli_serve.build_parser().parse_args(
+            [*argv, "--port", "0", "--device", "cuda", "--tokenizer", "hash",
+             "--topk", str(K)])
+        t0 = time.perf_counter()
+        self.httpd = cli_serve.serve(args)
+        self.start_s = time.perf_counter() - t0
+        self.svc = self.httpd.RequestHandlerClass.service
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.passes = []
+        index, svc = self.svc.index, self.svc
+        self.search = index.search
+        device_pass = svc._search_device
+
+        def recorded_pass(texts, k):
+            self.passes.append({"texts": list(texts), "calls": []})
+            return device_pass(texts, k)
+
+        def recorded_search(q, k, **kw):
+            s, i = self.search(q, k, **kw)
+            self.passes[-1]["calls"].append((q.detach().clone(), s, i))
+            return s, i
+
+        svc._search_device = recorded_pass
+        index.search = recorded_search
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.svc.close()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+        if self.thread.is_alive():
+            raise AssertionError("the serve thread did not stop")
+
+
+def _pass_arrays(ps):
+    """(query embeddings [n, D] fp32 on the host, scores, ids) of one
+    recorded device pass."""
+    embs, s, i = zip(*ps["calls"])
+    return (torch.cat(embs).float().cpu().numpy(), np.concatenate(s),
+            np.concatenate(i))
+
+
+def _served_rows(s, i):
+    """The answer the service builds from one search row: valid ids with
+    their scores."""
+    valid = i >= 0
+    return [{"id": int(a), "score": float(b)}
+            for a, b in zip(i[valid], s[valid])]
+
+
+def _check_served(tag, daemon, sent, answers):
+    """Every recorded pass EQUALs the index's own search of the pass's
+    query embeddings (ids and scores), and every answer EQUALs its row of
+    the pass that served it."""
+    rows = {}
+    for n, ps in enumerate(daemon.passes):
+        if not ps["calls"]:
+            raise AssertionError(f"{tag}: pass {n} recorded no search")
+        for embs, s0, i0 in ps["calls"]:
+            s, i = daemon.search(embs, daemon.svc.default_k)
+            if not (np.array_equal(s, s0) and np.array_equal(i, i0)):
+                raise AssertionError(f"{tag}: pass {n} differs from the "
+                                     "index's search of its own query "
+                                     "embeddings")
+        _, s, i = _pass_arrays(ps)
+        for r, text in enumerate(ps["texts"]):
+            rows.setdefault(text, _served_rows(s[r], i[r]))
+    for texts, ans in zip(sent, answers):
+        for text, ranked in zip(texts, ans["results"]):
+            if ranked != rows[text][:K]:  # every request asks for K
+                raise AssertionError(f"{tag}: the answer to {text!r} is not "
+                                     "its pass's search row")
+    return sum(len(t) for t in sent)
+
+
+def _serve_store(ctx, work):
+    """A clustered 1,048,576 x 768 store (SERVE_CENTERS Gaussian blobs,
+    from --seed), written as the int8 flat store by write_embeddings.
+    Returns (its directory, the blob centres)."""
+    from cldrd_tpu_torch.index import write_embeddings
+
+    dev, gen = ctx["dev"], ctx["gen"]
+    centers = torch.randn(SERVE_CENTERS, D, generator=gen, device=dev)
+    which = torch.randint(0, SERVE_CENTERS, (SERVE_ROWS,), generator=gen,
+                          device=dev)
+    x = centers[which] + 0.5 * torch.randn(SERVE_ROWS, D, generator=gen,
+                                           device=dev)
+    store = os.path.join(work, "store")
+    write_embeddings(store, x.cpu().numpy(),
+                     np.arange(SERVE_ROWS, dtype=np.int64), dtype="int8")
+    return store, centers
+
+
+def _recall_at_10(hits, ref):
+    return float(np.mean([len(set(a) & set(b)) / 10.0
+                          for a, b in zip(hits[:, :10], ref)]))
+
+
+def _send(url, requests, clients):
+    """``requests`` (lists of texts) from ``clients`` threads, each sending
+    its share in turn; returns (answers, wall seconds)."""
+    answers = [None] * len(requests)
+    errors = []
+
+    def client(c):
+        try:
+            for n in range(c, len(requests), clients):
+                answers[n] = _http(url, "/search",
+                                   {"queries": requests[n], "k": K})
+        except Exception as e:  # reported below, after every join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+    return answers, wall
+
+
+def _serve_breakdown(svc, search, texts):
+    """Where one device pass of the IVF daemon spends its time, for a pass
+    of ``len(texts)`` queries (ms, host clock around synchronised work):
+    tokenizing, the query encode (padded to the encode batch), the
+    index's search to host arrays, K6 alone at that search's probe shape
+    (CUDA events), and building the answer's hit lists and JSON."""
+    from cldrd_tpu_torch.index import ivf_index
+    from cldrd_tpu_torch.ops.fused_binmax import block_scores
+    from cldrd_tpu_torch.search.mips import _top_k
+
+    def host_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    ivf, n = svc.index, len(texts)
+    t_tok, tokens = host_ms(lambda: svc._pad(
+        svc.tokenizer(texts, svc.max_length), svc.encode_batch))
+    t_enc, embs = host_ms(lambda: svc.encode_fn(tokens)[:n])
+    t_search, (s, i) = host_ms(lambda: search(embs, svc.default_k))
+    b_pad = max(8, 1 << (n - 1).bit_length())
+    q = torch.cat([embs, embs[:1].expand(b_pad - n, -1)]).to(
+        ivf._query_dtype).contiguous()
+    probe = _top_k(block_scores(q.float(), ivf.centroids),
+                   ivf.nprobe)[1].to(torch.int32).contiguous()
+    k6 = time_ms(lambda: ivf_index._probe_and_score(
+        q, ivf.buckets, ivf.bucket_scales, probe, ivf.slot, ivf.precision),
+        reps=10)
+    t_json, _ = host_ms(lambda: json.dumps({"results": [
+        _served_rows(s[r], i[r]) for r in range(n)]}))
+    return {"queries": n, "padded_to": b_pad, "tokenize_ms": t_tok,
+            "encode_ms": t_enc, "search_ms": t_search, "k6_ms": k6,
+            "answer_json_ms": t_json}
+
+
+def phase_serve(ctx):
+    """The IVF serving path: cli.index --ivf-only, then cli.serve --ivf
+    --hbm-dtype int8 with the trained checkpoint under 8 concurrent
+    clients; then flat and IVFPQ + refine daemons."""
+    from cldrd_tpu_torch.cli import index as cli_index
+    from cldrd_tpu_torch.index import load_index
+    from cldrd_tpu_torch.ops import ivf_probe as k6_mod
+
+    work = os.path.join(WORK, "serve")
     shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    store, centers = _serve_store(ctx, work)
+    t_store = time.perf_counter() - t0
+    ivf_cli = ["--collection", ctx["corpus"]["collection"], "--out", store,
+               "--ivf-only", "--ivf-nlist", str(SERVE_NLIST), "--ivf-nprobe",
+               str(SERVE_NPROBE), "--device", "cuda"]
+    lines, t_ivf = _call_cli(cli_index.main, ivf_cli)
+    built = json.loads(lines[-1])
+    log(f"[serve] clustered {SERVE_ROWS} x {D} int8 store in {t_store:.1f} "
+        f"s; cli.index --ivf-only: {built['ivf_buckets']} buckets x "
+        f"{built['ivf_slot']} rows in {t_ivf:.1f} s")
+    rng = np.random.default_rng(ctx["seed"] + 2)
+    with open(ctx["corpus"]["queries"]) as f:
+        texts = [line.rstrip("\n").split("\t", 1)[1] for line in f]
+    order = iter(rng.permutation(len(texts)))
+
+    def draw(n_req, lo=1, hi=8):
+        return [[texts[next(order)] for _ in range(int(m))]
+                for m in rng.integers(lo, hi + 1, n_req)]
+
+    common = ["--checkpoint", ctx["trained_ckpt"], "--max-length",
+              str(TRAIN_LQ)]
+    res = {"store_s": t_store, "ivf_build_s": t_ivf, **built}
+
+    # --- IVF daemon, int8 store, K6
+    k6_before = k6_mod.LAUNCHES
+    dmn = _Daemon(["--index", store, "--ivf", "--hbm-dtype", "int8",
+                   *common])
+    try:
+        ivf = dmn.svc.index
+        if ivf.nprobe != SERVE_NPROBE or ivf.buckets.dtype != torch.int8:
+            raise AssertionError("the daemon did not load the int8 IVF store "
+                                 f"at nprobe {SERVE_NPROBE}")
+        sent = draw(SERVE_REQUESTS)
+        answers, wall = _send(dmn.url, sent, SERVE_CLIENTS)
+        nq = _check_served("ivf", dmn, sent, answers)
+        health = _http(dmn.url, "/healthz")
+        timed = list(dmn.passes)
+        flat = load_index(store, dtype=torch.int8, device=ctx["dev"])
+        # recall@10 at nprobe 32 against the exact oracle
+        arrays = [_pass_arrays(p) for p in timed]
+        embs = np.concatenate([a[0] for a in arrays])
+        hits = np.concatenate([a[2][:, :10] for a in arrays])
+        ref = np.concatenate([_oracle(flat, embs[r:r + 128], 10)[1]
+                              for r in range(0, len(embs), 128)])
+        recall = _recall_at_10(hits, ref)
+        # the served queries come from a text tower the store was not made
+        # by; queries from the store's own distribution (a blob centre
+        # plus the store's noise), as one encoder's queries and passages
+        # share a space, searched directly at the same nprobe
+        pick = torch.randint(0, SERVE_CENTERS, (256,), generator=ctx["gen"],
+                             device=ctx["dev"])
+        q_in = (centers[pick] + 0.5 * torch.randn(
+            256, D, generator=ctx["gen"], device=ctx["dev"])).cpu().numpy()
+        recall_in = _recall_at_10(
+            dmn.search(q_in, 10)[1],
+            np.concatenate([_oracle(flat, q_in[r:r + 128], 10)[1]
+                            for r in (0, 128)]))
+        breakdown = _serve_breakdown(dmn.svc, dmn.search,
+                                     texts[:max(1, round(nq / len(timed)))])
+        # the whole probe: answers agree with the exact oracle (normal
+        # queries) and EQUAL it on integer-valued ones
+        ivf.nprobe = ivf.n_buckets
+        dmn.passes.clear()
+        full_sent = draw(4, 4, 4)
+        full = [_http(dmn.url, "/search", {"queries": t, "k": K})
+                for t in full_sent]
+        _check_served("ivf full probe", dmn, full_sent, full)
+        for ps in dmn.passes:
+            embs_p, s_p, i_p = _pass_arrays(ps)
+            _check_close("ivf full probe vs oracle", s_p, i_p,
+                         *_oracle(flat, embs_p, K))
+        q_int = rng.integers(-8, 9, (8, D)).astype(np.float32)
+        s_int, i_int = dmn.search(q_int, K, nprobe=ivf.n_buckets)
+        _check_exact("ivf full probe integer", s_int, i_int,
+                     *_oracle(flat, q_int, K))
+        ivf.nprobe = SERVE_NPROBE
+        del flat
+        # live updates, persistence, blue/green reload
+        n0 = _http(dmn.url, "/healthz")["n_vectors"]
+        add = _http(dmn.url, "/add", {
+            "ids": [SERVE_ROWS + 1, SERVE_ROWS + 2],
+            "texts": texts[:2]})
+        rem = _http(dmn.url, "/remove", {"ids": [answers[0]["results"][0][0]
+                                                 ["id"]]})
+        snap = os.path.join(work, "snapshot")
+        saved = _http(dmn.url, "/save", {"dir": snap})
+        reloaded = _http(dmn.url, "/reload", {"dir": snap})
+        counts = [add["n_vectors"], rem["n_vectors"], saved["n_vectors"],
+                  reloaded["n_vectors"]]
+        if counts != [n0 + 2, n0 + 1, n0 + 1, n0 + 1]:
+            raise AssertionError(f"/add /remove /save /reload counts {counts} "
+                                 f"from {n0}")
+        after = _http(dmn.url, "/search", {"queries": texts[2:6], "k": K})
+        if len(after["results"]) != 4 or any(
+                len(r) != K for r in after["results"]):
+            raise AssertionError("the reloaded index answered short lists")
+    finally:
+        dmn.close()
+    res["ivf"] = {
+        "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "queries": nq,
+        "wall_s": wall, "qps": nq / wall, "recall_at_10": recall,
+        "recall_at_10_store_queries": recall_in,
+        "pass_breakdown": breakdown,
+        "healthz": health, "device_passes": len(timed),
+        "start_s": dmn.start_s,
+        "update_ms": {k: v["elapsed_ms"] for k, v in (
+            ("add", add), ("remove", rem), ("save", saved),
+            ("reload", reloaded))},
+        "ivf_probe_launches": k6_mod.LAUNCHES - k6_before}
+    log(f"[serve] ivf int8, nprobe {SERVE_NPROBE}: {SERVE_REQUESTS} requests "
+        f"({nq} queries, k={K}) from {SERVE_CLIENTS} clients in {wall:.3f} s "
+        f"= {nq / wall:.1f} QPS; p50 {health['latency_p50_ms']} ms, p99 "
+        f"{health['latency_p99_ms']} ms; {health['requests']} requests in "
+        f"{health['device_batches']} device batches; recall@10 vs the exact "
+        f"oracle {recall:.4f} (queries from the store's own distribution: "
+        f"{recall_in:.4f}); every answer EQUAL to IVFIndex.search of its "
+        f"query embeddings; full probe agrees with the oracle (integer "
+        f"queries EQUAL); "
+        f"/add /remove /save /reload ok; ivf_probe launches "
+        f"{res['ivf']['ivf_probe_launches']}; one pass of "
+        f"{breakdown['queries']} queries (ms): " + ", ".join(
+            f"{k[:-3]} {v:.3f}" for k, v in breakdown.items()
+            if k.endswith("_ms")))
+    if res["ivf"]["ivf_probe_launches"] <= 0:
+        raise AssertionError("the IVF daemon launched no ivf_probe")
+
+    # --- flat daemon over the same store (K1)
+    dmn = _Daemon(["--index", store, "--hbm-dtype", "int8", *common])
+    try:
+        sent = draw(3)
+        answers = [_http(dmn.url, "/search", {"queries": t, "k": K})
+                   for t in sent]
+        _check_served("flat", dmn, sent, answers)
+    finally:
+        dmn.close()
+    res["flat_start_s"] = dmn.start_s
+    log(f"[serve] flat int8 daemon: {len(sent)} requests, every answer EQUAL "
+        "to FlatIPIndex.search of its query embeddings")
+
+    # --- IVFPQ (SERVE_PQ_M x 4-bit) + exact refine over the flat disk store
+    lines, t_pq = _call_cli(cli_index.main, [
+        *ivf_cli, "--pq-m", str(SERVE_PQ_M), "--pq-bits", "4"])
+    dmn = _Daemon(["--index", store, "--ivf", "--refine-factor", "4",
+                   *common])
+    try:
+        if not dmn.svc.index.is_pq:
+            raise AssertionError("the PQ daemon did not load a PQ store")
+        sent = draw(3)
+        answers = [_http(dmn.url, "/search", {"queries": t, "k": K})
+                   for t in sent]
+        _check_served("ivfpq refine", dmn, sent, answers)
+        health = _http(dmn.url, "/healthz")
+    finally:
+        dmn.close()
+    res["pq"] = {"build_s": t_pq, **json.loads(lines[-1]),
+                 "start_s": dmn.start_s, "refine_factor":
+                 health["refine_factor"]}
+    log(f"[serve] ivfpq {SERVE_PQ_M} x 4-bit (built in {t_pq:.1f} s) + "
+        f"refine x4 daemon: {len(sent)} requests, every answer EQUAL to "
+        "RefinedIndex.search of its query embeddings")
+    ctx["serve"] = res
+    shutil.rmtree(WORK, ignore_errors=True)
 
 
 def smi_line():
@@ -1064,8 +1588,9 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
         "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
         "shape": tag,
     }
-    if "matmul_ms" in t:
-        rec["matmul_ms"] = t["matmul_ms"]
+    for key in ("matmul_ms", "library_note"):
+        if key in t:
+            rec[key] = t[key]
     return rec
 
 
@@ -1081,14 +1606,21 @@ KERNELS = [
      "cldrd_tpu/ops/attention.py:257", "train", "attn_err_bf16"),
     ("attention_infer", ("attention", "infer"), "csrc/attention.cu",
      "cldrd_tpu/ops/attention.py:61", "encode", "attn_err_bf16"),
+    ("ivf_probe", ("ivf_probe", None), "csrc/ivf_probe.cu",
+     "cldrd_tpu/ops/ivf_probe.py:60", "int8_full_b8", "k6_err"),
 ]
 
 
 def _counters():
-    from cldrd_tpu_torch.ops import attention, extract_topk, fused_binmax
+    from cldrd_tpu_torch.ops import (
+        attention,
+        extract_topk,
+        fused_binmax,
+        ivf_probe,
+    )
 
     return {"extract_topk": extract_topk, "fused_binmax": fused_binmax,
-            "attention": attention}
+            "attention": attention, "ivf_probe": ivf_probe}
 
 
 def reset_launches():
@@ -1133,16 +1665,28 @@ def main(argv=None) -> int:
 
     run("build", phase_build)
     run("kernels", phase_kernels)
-    stores = run("prepare", prepare_search)
-    # the counted window: every kernel launch of the main path
-    reset_launches()
-    run("search", phase_search, *stores)
-    del stores
-    torch.cuda.empty_cache()
-    run("train", phase_train)
-    torch.cuda.empty_cache()
-    run("pipeline", phase_pipeline)
-    launches = read_launches()
+    ctx["stores"] = run("prepare", prepare_search)
+    # each path of the port runs in its own counted window: the counts are
+    # set to 0 just before it and read just after, and every kernel the
+    # path must reach has launched there
+    launches = {name: 0 for name, *_ in KERNELS}
+    for name, fn, needs in (
+            ("search", lambda c: phase_search(c, *c.pop("stores")),
+             ("extract_topk", "fused_binmax")),
+            ("train", phase_train,
+             ("attention_train_fwd", "attention_train_bwd")),
+            ("pipeline", phase_pipeline, ("extract_topk", "attention_infer")),
+            ("serve", phase_serve, ("ivf_probe",))):
+        reset_launches()
+        run(name, fn)
+        window = read_launches()
+        log(f"[{name}] kernel launches: {window}")
+        missing = [k for k in needs if window[k] <= 0]
+        if missing:
+            raise AssertionError(f"the {name} path launched no {missing}")
+        for k, v in window.items():
+            launches[k] += v
+        torch.cuda.empty_cache()
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -1151,8 +1695,9 @@ def main(argv=None) -> int:
     # every measurement of the run, unrounded, on one line
     log("results " + json.dumps({
         k: ctx.get(k) for k in ("timings", "search_layer_ms", "search",
-                                "train", "pipeline", "k1_err", "k2_err",
-                                "attn_err_fp32", "attn_err_bf16",
+                                "train", "pipeline", "serve", "k1_err",
+                                "k2_err", "k6_err", "attn_err_fp32",
+                                "attn_err_bf16",
                                 "k1_checked", "build_s")}))
     log(smi_line())
     log(json.dumps({"kernels": [

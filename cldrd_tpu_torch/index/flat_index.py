@@ -59,8 +59,29 @@ def query_dtype_for(store_dtype, precision: str):
     return store_dtype
 
 
+class HostIdCacheMixin:
+    """Host-cached external-id map shared by the resident index classes.
+
+    ``_ids_field`` names the device id array (-1 = padding/tombstone).
+    ``/healthz`` and every add/remove response read ``n_vectors``; the
+    cache keeps them from fetching the whole id array each time."""
+
+    _ids_field = "row_ids"
+
+    def _host_ids(self) -> np.ndarray:
+        ids = getattr(self, "_host_ids_cache", None)
+        if ids is None:
+            ids = getattr(self, self._ids_field).cpu().numpy()
+            self._host_ids_cache = ids
+        return ids
+
+    @property
+    def n_vectors(self) -> int:
+        return int((self._host_ids() >= 0).sum())
+
+
 @dataclass
-class FlatIPIndex:
+class FlatIPIndex(HostIdCacheMixin):
     """Exact MIPS index: embeddings [N_pad, D] + row ids [N_pad] on one
     device (``row_scales`` [N_pad] fp32 for an int8 store)."""
 
@@ -85,17 +106,6 @@ class FlatIPIndex:
     @property
     def _query_dtype(self):
         return query_dtype_for(self.embeddings.dtype, self.precision)
-
-    def _host_ids(self) -> np.ndarray:
-        ids = getattr(self, "_host_ids_cache", None)
-        if ids is None:
-            ids = self.row_ids.cpu().numpy()
-            self._host_ids_cache = ids
-        return ids
-
-    @property
-    def n_vectors(self) -> int:
-        return int((self._host_ids() >= 0).sum())
 
     @classmethod
     def build(cls, embeddings: np.ndarray, ids: np.ndarray,
@@ -166,7 +176,117 @@ class FlatIPIndex:
                    None if row_scales is None
                    else row_scales.to(torch.float32).contiguous())
 
+    # ------------------------------------------------------- live updates
+
+    def _free_tail(self) -> int:
+        """Rows of contiguous id == -1 padding at the END of the id array:
+        spare capacity that add() fills in place."""
+        host = self._host_ids()
+        valid = np.flatnonzero(host >= 0)
+        used = int(valid[-1]) + 1 if valid.size else 0
+        return len(host) - used
+
+    def _derived(self, embeddings, row_ids_host: np.ndarray, row_scales):
+        """A new index over these arrays with this one's settings."""
+        out = FlatIPIndex(embeddings,
+                          torch.from_numpy(row_ids_host).to(self.device),
+                          self.block_rows, self.method, self.precision,
+                          row_scales)
+        out._host_ids_cache = row_ids_host
+        return out
+
+    def add(self, embeddings: np.ndarray, ids: np.ndarray) -> "FlatIPIndex":
+        """Append documents (FAISS ``add_with_ids``); returns a NEW index.
+        New rows first fill the padding tail IN PLACE (this index's
+        tensors are written, so do not search the old object afterwards;
+        no second corpus materializes); only when that capacity runs out
+        does a ``block_rows``-aligned slab concatenate on. int8 stores
+        quantize new rows with the shared quantizer. Row positions, and so
+        tie order, are the reference's."""
+        embeddings = np.asarray(embeddings)
+        ids = np.asarray(ids)
+        n, d = embeddings.shape
+        assert ids.shape == (n,) and d == self.dim
+        _check_ids(ids)
+        int8 = self.embeddings.dtype == torch.int8
+        free = self._free_tail()
+        n_total = len(self._host_ids())
+        if int8:
+            rows, scales_new = quantize_rows(embeddings)
+        else:
+            rows, scales_new = embeddings.astype(np.float32), None
+        fill = min(n, free)   # rows that reuse the existing padding tail
+        over = n - fill       # rows that need a new block-aligned slab
+
+        # the fallible slab allocation comes first: nothing of this index
+        # is written until every allocation has succeeded
+        embs, row_scales = self.embeddings, self.row_scales
+        host = self._host_ids().copy()
+        if over > 0:
+            n_pad = _pad_rows(over, self.block_rows)
+            new_ids = np.full((n_pad,), -1, np.int32)
+            new_ids[:over] = ids[fill:].astype(np.int32)
+            slab = np.zeros((n_pad, d), np.int8 if int8 else np.float32)
+            slab[:over] = rows[fill:]
+            embs = torch.cat([embs, torch.from_numpy(slab).to(
+                self.device, embs.dtype)])
+            if int8:
+                sc = np.ones((n_pad,), np.float32)
+                sc[:over] = scales_new[fill:]
+                row_scales = torch.cat([row_scales,
+                                        torch.from_numpy(sc).to(self.device)])
+            host = np.concatenate([host, new_ids])
+        if fill > 0:
+            offset = n_total - free
+            embs[offset:offset + fill] = torch.from_numpy(
+                np.ascontiguousarray(rows[:fill])).to(self.device, embs.dtype)
+            host[offset:offset + fill] = ids[:fill].astype(np.int32)
+            if int8:
+                row_scales[offset:offset + fill] = torch.from_numpy(
+                    scales_new[:fill]).to(self.device)
+        return self._derived(embs, host, row_scales)
+
+    def remove(self, ids) -> "FlatIPIndex":
+        """Tombstone documents (FAISS ``remove_ids``): matching rows get id
+        -1 and drop out of every search. Capacity is not reclaimed; the
+        new index shares the embedding tensor."""
+        drop_list = sorted(set(int(i) for i in ids))
+        _check_ids(np.asarray(drop_list, np.int64))
+        host = self._host_ids()
+        new_ids = np.where(np.isin(host, np.asarray(drop_list, np.int32)),
+                           -1, host).astype(np.int32)
+        return self._derived(self.embeddings, new_ids, self.row_scales)
+
+    def save(self, out_dir: str, rows_per_shard: int = 500_000) -> None:
+        """Persist the resident index, padding rows dropped: an fp32 store
+        for float stores, int8 codes + scales for quantized ones (written
+        as they are, no dequantize round trip)."""
+        from .persistence import write_embeddings, write_quantized
+
+        host_ids = self._host_ids()
+        valid = torch.from_numpy(np.flatnonzero(host_ids >= 0)).to(
+            self.device)
+        ids = host_ids[host_ids >= 0].astype(np.int64)
+        if self.embeddings.dtype == torch.int8:
+            write_quantized(out_dir, self.embeddings[valid].cpu().numpy(),
+                            self.row_scales[valid].cpu().numpy(), ids,
+                            rows_per_shard=rows_per_shard)
+        else:
+            write_embeddings(out_dir,
+                             self.embeddings[valid].float().cpu().numpy(),
+                             ids, rows_per_shard=rows_per_shard)
+
     # ------------------------------------------------------------ search
+
+    def warmup_batch_sizes(self, max_batch: int) -> list:
+        """One batch size per padded shape ``search()`` can dispatch for
+        b <= max_batch (it pads b up to a multiple of 128)."""
+        sizes, m = [], 128
+        while True:
+            sizes.append(min(max_batch, m))
+            if m >= max_batch:
+                return sizes
+            m += 128
 
     def _to_queries(self, queries) -> torch.Tensor:
         q = torch.as_tensor(queries)

@@ -58,6 +58,16 @@ def _write_store(out_dir, rows, ids, rows_per_shard, dtype_str) -> None:
         json.dump(meta, f, indent=2)
 
 
+def write_quantized(out_dir: str, codes: np.ndarray, scales: np.ndarray,
+                    ids: np.ndarray, rows_per_shard: int = 500_000) -> None:
+    """Write an int8 store from pre-quantized codes + scales (no
+    dequantize/requantize round trip, e.g. a live int8 index)."""
+    assert codes.dtype == np.int8 and scales.shape == (codes.shape[0],)
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, SCALES_NAME), scales.astype(np.float32))
+    _write_store(out_dir, codes, ids, rows_per_shard, "int8")
+
+
 def _read_raw(out_dir: str, mmap: bool, out_dtype) -> Tuple[np.ndarray,
                                                             np.ndarray, dict]:
     with open(os.path.join(out_dir, META_NAME)) as f:

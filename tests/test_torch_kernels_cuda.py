@@ -17,6 +17,7 @@ import torch
 from cldrd_tpu_torch.ops import attention as att
 from cldrd_tpu_torch.ops import extract_topk as k1
 from cldrd_tpu_torch.ops import fused_binmax as k2
+from cldrd_tpu_torch.ops import ivf_probe as k6
 from cldrd_tpu_torch.search import mips
 
 
@@ -106,6 +107,98 @@ def test_extract_topk_other_bins_equal_plain(bin_rows):
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+def _probe_inputs(dev, nb, slot, d, bz, p, c_dtype, scaled, seed,
+                  integer=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if c_dtype == torch.int8:
+        rows = torch.randint(-127, 128, (nb * slot, d), generator=g,
+                             device=dev, dtype=torch.int8)
+    elif integer:
+        rows = torch.randint(-8, 9, (nb * slot, d), generator=g, device=dev,
+                             dtype=torch.int8).to(c_dtype)
+    else:
+        rows = torch.randn(nb * slot, d, generator=g, device=dev).to(c_dtype)
+    q = (torch.randint(-4, 5, (bz, d), generator=g, device=dev,
+                       dtype=torch.int8).float() if integer
+         else torch.randn(bz, d, generator=g, device=dev))
+    probe = torch.randint(0, nb, (bz, p), generator=g, device=dev,
+                          dtype=torch.int32)
+    scales = (torch.rand(nb, slot, generator=g, device=dev) + 0.5
+              if scaled else None)
+    return q, rows, probe, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype,scaled", [(torch.int8, True),
+                                            (torch.bfloat16, False),
+                                            (torch.bfloat16, True)])
+@pytest.mark.parametrize("bz,p,slot,d", [(8, 32, 256, 768), (3, 5, 128, 768),
+                                         (1, 1, 200, 64)])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_ivf_probe_equals_plain(c_dtype, scaled, bz, p, slot, d, q_dtype):
+    """K6: EQUAL on integer-valued inputs (every dot exact), within 1e-5
+    of the largest score on normal data; a ragged last row block (slot
+    200) included."""
+    dev = _device()
+    q, rows, probe, scales = _probe_inputs(dev, 40, slot, d, bz, p, c_dtype,
+                                           scaled, 4)
+    q = q.to(q_dtype)
+    before = k6.LAUNCHES
+    got = k6.probe_scores(q, rows, probe, scales, slot=slot)
+    ref = k6.probe_scores_plain(q, rows, probe, scales, slot=slot)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == before + 1
+    assert got.shape == (bz, p * slot) and got.dtype == torch.float32
+    assert torch.equal(got, ref)
+    q, rows, probe, scales = _probe_inputs(dev, 40, slot, d, bz, p, c_dtype,
+                                           scaled, 5, integer=False)
+    got = k6.probe_scores(q.to(q_dtype), rows, probe, scales, slot=slot)
+    ref = k6.probe_scores_plain(q.to(q_dtype), rows, probe, scales,
+                                slot=slot)
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ivf_probe_duplicates_and_64bit_offsets():
+    """Repeated probes in a row; rows past 2^31 elements of the store."""
+    dev = _device()
+    slot, d, nb = 2048, 768, 1400          # 2.2e9 elements > INT32_MAX
+    rows = torch.zeros(nb * slot, d, dtype=torch.int8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for b in (0, 3, nb - 2, nb - 1):
+        rows[b * slot:(b + 1) * slot] = torch.randint(
+            -127, 128, (slot, d), generator=g, device=dev, dtype=torch.int8)
+    scales = torch.rand(nb, slot, generator=g, device=dev) + 0.5
+    q = torch.randint(-4, 5, (4, d), generator=g, device=dev,
+                      dtype=torch.int8).to(torch.bfloat16)
+    probe = torch.tensor([[nb - 1, nb - 1, 0, nb - 2, 3]] * 4,
+                         dtype=torch.int32, device=dev)
+    got = k6.probe_scores(q, rows, probe, scales, slot=slot)
+    ref = k6.probe_scores_plain(q, rows, probe, scales, slot=slot)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got[:, :slot], got[:, slot:2 * slot])
+    assert bool((got[:, :slot] != 0).any())
+
+
+@pytest.mark.cuda
+def test_ivf_probe_raises_on_operands_the_kernel_does_not_take():
+    dev = _device()
+    q, rows, probe, scales = _probe_inputs(dev, 8, 128, 768, 2, 3,
+                                           torch.int8, True, 7)
+    q = q.bfloat16()
+    for bad in (torch.float32, torch.float16):
+        with pytest.raises(TypeError):
+            k6.probe_scores(q, rows.to(bad), probe, None, slot=128)
+    with pytest.raises(ValueError):     # D not a multiple of 16
+        k6.probe_scores(q[:, :40].contiguous(), rows[:, :40].contiguous(),
+                        probe, scales, slot=128)
+    with pytest.raises(ValueError):     # operands on two devices
+        k6.probe_scores(q, rows.cpu(), probe, scales, slot=128)
+    with pytest.raises(ValueError):     # int64 probes
+        k6.probe_scores(q, rows, probe.long(), scales, slot=128)
 
 
 def _attn_inputs(dev, b, length, h, d, dtype, segments, seed=0):

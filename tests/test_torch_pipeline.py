@@ -150,7 +150,11 @@ def test_cli_rejects_flags_of_later_slices():
         with pytest.raises(SystemExit):
             t_retrieve.build_parser().parse_args(
                 ["--index", "i", "--queries", "q", "--run", "r", *argv])
-    for argv in (["--ivf-nlist", "8"], ["--devices", "2"],
+    # the IVF build came with the IVF/serving slice
+    args = t_index.build_parser().parse_args(
+        ["--collection", "c", "--out", "o", "--ivf-nlist", "8"])
+    assert args.ivf_nlist == 8
+    for argv in (["--devices", "2"],
                  ["--token-cache", "c"], ["--bucket-lengths", "32"]):
         with pytest.raises(SystemExit):
             t_index.build_parser().parse_args(
