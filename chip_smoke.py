@@ -49,21 +49,26 @@ Phases (each raises on any failure; the script then exits non-zero):
 6. serve: a clustered 1,048,576 x 768 int8 store (from --seed) gets an
    IVF companion from cli.index --ivf-only (512 cells, slot 2,048, nprobe
    32), and cli.serve --ivf --hbm-dtype int8 serves it with the trained
-   checkpoint: 8 client threads send 64 /search requests of 1-8 queries
-   at k=1000. Every answer must EQUAL IVFIndex.search of the same query
-   embeddings (ids and scores); at full probe answers agree with the exact
-   oracle, and integer-valued queries EQUAL it. Prints recall@10 at
-   nprobe 32 against the oracle (for the served queries and for queries
-   drawn from the store's own distribution), QPS, p50/p99, requests
-   against device batches and one pass's time by stage; runs /add,
-   /remove, /save and /reload once each. A flat-mode
-   daemon and an IVFPQ (96 x 4-bit) daemon with --refine-factor 4 each
-   answer a few requests, EQUAL to their direct search.
+   checkpoint: 8 client threads send a burst of 64 /search requests of 1-8
+   queries at k=1000, then a timed window of 2,048 such requests. Every
+   answer must EQUAL IVFIndex.search of the same query embeddings (ids
+   and scores), and each of those searches must launch K6 once; at full
+   probe answers agree with the exact oracle, and integer-valued queries
+   EQUAL it. Prints recall@10 at nprobe 32 against the oracle (for the
+   served queries and for queries drawn from the store's own
+   distribution), the window's QPS and p50/p99 over all its requests,
+   requests against device batches and one pass's time by stage; runs
+   /add, /remove, /save and /reload once each. A flat-mode daemon (K1)
+   and an IVFPQ (96 x 4-bit) daemon with --refine-factor 4 each answer a
+   few requests, EQUAL to their direct search.
 
 Phases 3-6 drive the port's four paths (search, train, pipeline,
 serve). Kernel launch counts are set to 0 just before each and read just
 after it: a kernel its path must reach with no launch there fails the
-run, and the kernels line sums the four windows.
+run, and the kernels line sums the four windows. The serve phase checks
+its answers through the same kernels, so its window is the sum of spans
+that each hold only the path's own work (the index CLI, the daemons'
+start-up and the requests they answer), counted the same way.
 The second-to-last line is one JSON object with every kernel's launches,
 error, times and bound; the line before it is the card's name and power
 limit from nvidia-smi; the last line is the result object.
@@ -114,7 +119,8 @@ IVF_NB, IVF_SLOT, IVF_P = 4096, 2048, 32  # full-corpus serving store (K6)
 IVF_BF16_NB = 512                         # 1,048,576 bf16 rows (K6)
 SERVE_ROWS, SERVE_CENTERS = 1_048_576, 1024
 SERVE_NLIST, SERVE_NPROBE = 512, 32
-SERVE_CLIENTS, SERVE_REQUESTS = 8, 64
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 64     # the checked burst
+SERVE_TIMED_REQUESTS = 2048               # the timed window
 SERVE_PQ_M = 96                           # 96 x 4-bit codes: 48 bytes a row
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -1279,8 +1285,9 @@ def _served_rows(s, i):
 
 def _check_served(tag, daemon, sent, answers):
     """Every recorded pass EQUALs the index's own search of the pass's
-    query embeddings (ids and scores), and every answer EQUALs its row of
-    the pass that served it."""
+    query embeddings (ids and scores), and every answer EQUALs the row of
+    a pass that searched its text (a text sent twice may ride in two
+    passes)."""
     rows = {}
     for n, ps in enumerate(daemon.passes):
         if not ps["calls"]:
@@ -1293,10 +1300,11 @@ def _check_served(tag, daemon, sent, answers):
                                      "embeddings")
         _, s, i = _pass_arrays(ps)
         for r, text in enumerate(ps["texts"]):
-            rows.setdefault(text, _served_rows(s[r], i[r]))
+            rows.setdefault(text, []).append(_served_rows(s[r], i[r]))
     for texts, ans in zip(sent, answers):
         for text, ranked in zip(texts, ans["results"]):
-            if ranked != rows[text][:K]:  # every request asks for K
+            # every request asks for K
+            if not any(ranked == row[:K] for row in rows[text]):
                 raise AssertionError(f"{tag}: the answer to {text!r} is not "
                                      "its pass's search row")
     return sum(len(t) for t in sent)
@@ -1327,15 +1335,19 @@ def _recall_at_10(hits, ref):
 
 def _send(url, requests, clients):
     """``requests`` (lists of texts) from ``clients`` threads, each sending
-    its share in turn; returns (answers, wall seconds)."""
+    its share in turn; returns (answers, each request's seconds as its
+    client saw them, wall seconds)."""
     answers = [None] * len(requests)
+    took = [None] * len(requests)
     errors = []
 
     def client(c):
         try:
             for n in range(c, len(requests), clients):
+                t0 = time.perf_counter()
                 answers[n] = _http(url, "/search",
                                    {"queries": requests[n], "k": K})
+                took[n] = time.perf_counter() - t0
         except Exception as e:  # reported below, after every join
             errors.append(e)
 
@@ -1349,18 +1361,40 @@ def _send(url, requests, clients):
     wall = time.perf_counter() - t0
     if errors or any(th.is_alive() for th in threads):
         raise AssertionError(f"clients failed: {errors[:3]}")
-    return answers, wall
+    return answers, took, wall
+
+
+@contextlib.contextmanager
+def _counted(total):
+    """The kernel launches of the enclosed work alone: the counts are set
+    to 0 on entry and read on exit into the yielded dict, which is also
+    added to ``total``."""
+    span = {}
+    reset_launches()
+    yield span
+    span.update(read_launches())
+    for k, v in span.items():
+        total[k] += v
+
+
+def _one_launch_a_search(tag, passes, span):
+    """Each IVF search the recorded passes made launched K6 once within
+    ``span``; returns the number of searches."""
+    searches = sum(len(p["calls"]) for p in passes)
+    if not 0 < searches == span["ivf_probe"]:
+        raise AssertionError(f"the {tag}'s {searches} IVF searches made "
+                             f"{span['ivf_probe']} ivf_probe launches")
+    return searches
 
 
 def _serve_breakdown(svc, search, texts):
     """Where one device pass of the IVF daemon spends its time, for a pass
     of ``len(texts)`` queries (ms, host clock around synchronised work):
     tokenizing, the query encode (padded to the encode batch), the
-    index's search to host arrays, K6 alone at that search's probe shape
-    (CUDA events), and building the answer's hit lists and JSON."""
+    index's search to host arrays, K6 inside those searches (CUDA events
+    around the index's own probe_scores call), and building the answer's
+    hit lists and JSON."""
     from cldrd_tpu_torch.index import ivf_index
-    from cldrd_tpu_torch.ops.fused_binmax import block_scores
-    from cldrd_tpu_torch.search.mips import _top_k
 
     def host_ms(fn, reps=5):
         fn()
@@ -1371,22 +1405,33 @@ def _serve_breakdown(svc, search, texts):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3, out
 
-    ivf, n = svc.index, len(texts)
+    n = len(texts)
     t_tok, tokens = host_ms(lambda: svc._pad(
         svc.tokenizer(texts, svc.max_length), svc.encode_batch))
     t_enc, embs = host_ms(lambda: svc.encode_fn(tokens)[:n])
-    t_search, (s, i) = host_ms(lambda: search(embs, svc.default_k))
-    b_pad = max(8, 1 << (n - 1).bit_length())
-    q = torch.cat([embs, embs[:1].expand(b_pad - n, -1)]).to(
-        ivf._query_dtype).contiguous()
-    probe = _top_k(block_scores(q.float(), ivf.centroids),
-                   ivf.nprobe)[1].to(torch.int32).contiguous()
-    k6 = time_ms(lambda: ivf_index._probe_and_score(
-        q, ivf.buckets, ivf.bucket_scales, probe, ivf.slot, ivf.precision),
-        reps=10)
+    kernel, events = ivf_index.probe_scores, []
+
+    def timed_probe(q, *a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = kernel(q, *a, **kw)
+        ev[1].record()
+        events.append((ev, q.shape[0]))
+        return out
+
+    ivf_index.probe_scores = timed_probe
+    try:
+        t_search, (s, i) = host_ms(lambda: search(embs, svc.default_k))
+    finally:
+        ivf_index.probe_scores = kernel
+    torch.cuda.synchronize()
+    if not events:
+        raise AssertionError("the IVF search did not reach probe_scores")
+    k6 = float(np.mean([a.elapsed_time(b) for (a, b), _ in events]))
     t_json, _ = host_ms(lambda: json.dumps({"results": [
         _served_rows(s[r], i[r]) for r in range(n)]}))
-    return {"queries": n, "padded_to": b_pad, "tokenize_ms": t_tok,
+    return {"queries": n, "padded_to": events[0][1], "tokenize_ms": t_tok,
             "encode_ms": t_enc, "search_ms": t_search, "k6_ms": k6,
             "answer_json_ms": t_json}
 
@@ -1394,10 +1439,10 @@ def _serve_breakdown(svc, search, texts):
 def phase_serve(ctx):
     """The IVF serving path: cli.index --ivf-only, then cli.serve --ivf
     --hbm-dtype int8 with the trained checkpoint under 8 concurrent
-    clients; then flat and IVFPQ + refine daemons."""
+    clients; then flat and IVFPQ + refine daemons. Returns the launch
+    counts of the path's own work."""
     from cldrd_tpu_torch.cli import index as cli_index
     from cldrd_tpu_torch.index import load_index
-    from cldrd_tpu_torch.ops import ivf_probe as k6_mod
 
     work = os.path.join(WORK, "serve")
     shutil.rmtree(work, ignore_errors=True)
@@ -1408,7 +1453,12 @@ def phase_serve(ctx):
     ivf_cli = ["--collection", ctx["corpus"]["collection"], "--out", store,
                "--ivf-only", "--ivf-nlist", str(SERVE_NLIST), "--ivf-nprobe",
                str(SERVE_NPROBE), "--device", "cuda"]
-    lines, t_ivf = _call_cli(cli_index.main, ivf_cli)
+    # the path's launch window holds its own work alone (the index CLI, the
+    # daemons' start-up with its warm-up, the clients' requests, the
+    # updates); the checks below search through the same kernels outside it
+    own = dict.fromkeys(read_launches(), 0)
+    with _counted(own):
+        lines, t_ivf = _call_cli(cli_index.main, ivf_cli)
     built = json.loads(lines[-1])
     log(f"[serve] clustered {SERVE_ROWS} x {D} int8 store in {t_store:.1f} "
         f"s; cli.index --ivf-only: {built['ivf_buckets']} buckets x "
@@ -1427,22 +1477,38 @@ def phase_serve(ctx):
     res = {"store_s": t_store, "ivf_build_s": t_ivf, **built}
 
     # --- IVF daemon, int8 store, K6
-    k6_before = k6_mod.LAUNCHES
-    dmn = _Daemon(["--index", store, "--ivf", "--hbm-dtype", "int8",
-                   *common])
+    with _counted(own) as start_k:
+        dmn = _Daemon(["--index", store, "--ivf", "--hbm-dtype", "int8",
+                       *common])
     try:
         ivf = dmn.svc.index
         if ivf.nprobe != SERVE_NPROBE or ivf.buckets.dtype != torch.int8:
             raise AssertionError("the daemon did not load the int8 IVF store "
                                  f"at nprobe {SERVE_NPROBE}")
+        # a checked burst, then a timed window of SERVE_TIMED_REQUESTS
+        # (texts drawn with replacement); the daemon's latency ring holds
+        # 2,048 requests, so /healthz then reads the window alone
         sent = draw(SERVE_REQUESTS)
-        answers, wall = _send(dmn.url, sent, SERVE_CLIENTS)
-        nq = _check_served("ivf", dmn, sent, answers)
+        with _counted(own) as burst_k:
+            answers, _, burst_wall = _send(dmn.url, sent, SERVE_CLIENTS)
+        searches = _one_launch_a_search("burst", dmn.passes, burst_k)
+        nq_burst = _check_served("ivf", dmn, sent, answers)
+        passes = list(dmn.passes)
+        dmn.passes.clear()
+        window = [[texts[j] for j in rng.integers(0, len(texts), m)]
+                  for m in rng.integers(1, 9, SERVE_TIMED_REQUESTS)]
+        with _counted(own) as timed_k:
+            answers, took, wall = _send(dmn.url, window, SERVE_CLIENTS)
         health = _http(dmn.url, "/healthz")
+        _one_launch_a_search("window", dmn.passes, timed_k)
+        nq = _check_served("ivf timed", dmn, window, answers)
+        took_ms = np.sort(np.asarray(took)) * 1e3
         timed = list(dmn.passes)
+        passes += timed
         flat = load_index(store, dtype=torch.int8, device=ctx["dev"])
-        # recall@10 at nprobe 32 against the exact oracle
-        arrays = [_pass_arrays(p) for p in timed]
+        # recall@10 at nprobe 32 against the exact oracle, over every
+        # served query
+        arrays = [_pass_arrays(p) for p in passes]
         embs = np.concatenate([a[0] for a in arrays])
         hits = np.concatenate([a[2][:, :10] for a in arrays])
         ref = np.concatenate([_oracle(flat, embs[r:r + 128], 10)[1]
@@ -1467,8 +1533,9 @@ def phase_serve(ctx):
         ivf.nprobe = ivf.n_buckets
         dmn.passes.clear()
         full_sent = draw(4, 4, 4)
-        full = [_http(dmn.url, "/search", {"queries": t, "k": K})
-                for t in full_sent]
+        with _counted(own):
+            full = [_http(dmn.url, "/search", {"queries": t, "k": K})
+                    for t in full_sent]
         _check_served("ivf full probe", dmn, full_sent, full)
         for ps in dmn.passes:
             embs_p, s_p, i_p = _pass_arrays(ps)
@@ -1482,28 +1549,38 @@ def phase_serve(ctx):
         del flat
         # live updates, persistence, blue/green reload
         n0 = _http(dmn.url, "/healthz")["n_vectors"]
-        add = _http(dmn.url, "/add", {
-            "ids": [SERVE_ROWS + 1, SERVE_ROWS + 2],
-            "texts": texts[:2]})
-        rem = _http(dmn.url, "/remove", {"ids": [answers[0]["results"][0][0]
-                                                 ["id"]]})
-        snap = os.path.join(work, "snapshot")
-        saved = _http(dmn.url, "/save", {"dir": snap})
-        reloaded = _http(dmn.url, "/reload", {"dir": snap})
+        with _counted(own):
+            add = _http(dmn.url, "/add", {
+                "ids": [SERVE_ROWS + 1, SERVE_ROWS + 2],
+                "texts": texts[:2]})
+            rem = _http(dmn.url, "/remove", {
+                "ids": [answers[0]["results"][0][0]["id"]]})
+            snap = os.path.join(work, "snapshot")
+            saved = _http(dmn.url, "/save", {"dir": snap})
+            reloaded = _http(dmn.url, "/reload", {"dir": snap})
+            after = _http(dmn.url, "/search", {"queries": texts[2:6],
+                                               "k": K})
         counts = [add["n_vectors"], rem["n_vectors"], saved["n_vectors"],
                   reloaded["n_vectors"]]
         if counts != [n0 + 2, n0 + 1, n0 + 1, n0 + 1]:
             raise AssertionError(f"/add /remove /save /reload counts {counts} "
                                  f"from {n0}")
-        after = _http(dmn.url, "/search", {"queries": texts[2:6], "k": K})
         if len(after["results"]) != 4 or any(
                 len(r) != K for r in after["results"]):
             raise AssertionError("the reloaded index answered short lists")
     finally:
         dmn.close()
+    ivf_k6 = own["ivf_probe"]
     res["ivf"] = {
-        "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "queries": nq,
-        "wall_s": wall, "qps": nq / wall, "recall_at_10": recall,
+        "burst": {"requests": SERVE_REQUESTS, "queries": nq_burst,
+                  "wall_s": burst_wall},
+        "requests": SERVE_TIMED_REQUESTS, "clients": SERVE_CLIENTS,
+        "queries": nq, "wall_s": wall, "qps": nq / wall,
+        "latency_p50_ms": float(np.percentile(took_ms, 50)),
+        "latency_p99_ms": float(np.percentile(took_ms, 99)),
+        "latency_max_ms": float(took_ms[-1]),
+        "latency_mean_ms": float(took_ms.mean()),
+        "recall_at_10": recall, "recall_queries": len(embs),
         "recall_at_10_store_queries": recall_in,
         "pass_breakdown": breakdown,
         "healthz": health, "device_passes": len(timed),
@@ -1511,48 +1588,64 @@ def phase_serve(ctx):
         "update_ms": {k: v["elapsed_ms"] for k, v in (
             ("add", add), ("remove", rem), ("save", saved),
             ("reload", reloaded))},
-        "ivf_probe_launches": k6_mod.LAUNCHES - k6_before}
-    log(f"[serve] ivf int8, nprobe {SERVE_NPROBE}: {SERVE_REQUESTS} requests "
-        f"({nq} queries, k={K}) from {SERVE_CLIENTS} clients in {wall:.3f} s "
-        f"= {nq / wall:.1f} QPS; p50 {health['latency_p50_ms']} ms, p99 "
-        f"{health['latency_p99_ms']} ms; {health['requests']} requests in "
-        f"{health['device_batches']} device batches; recall@10 vs the exact "
-        f"oracle {recall:.4f} (queries from the store's own distribution: "
-        f"{recall_in:.4f}); every answer EQUAL to IVFIndex.search of its "
-        f"query embeddings; full probe agrees with the oracle (integer "
-        f"queries EQUAL); "
-        f"/add /remove /save /reload ok; ivf_probe launches "
-        f"{res['ivf']['ivf_probe_launches']}; one pass of "
-        f"{breakdown['queries']} queries (ms): " + ", ".join(
+        "ivf_probe_launches": {"start": start_k["ivf_probe"],
+                               "burst": burst_k["ivf_probe"],
+                               "timed": timed_k["ivf_probe"],
+                               "daemon": ivf_k6}}
+    log(f"[serve] ivf int8, nprobe {SERVE_NPROBE}, k={K}, {SERVE_CLIENTS} "
+        f"clients: checked burst of {SERVE_REQUESTS} requests ({nq_burst} "
+        f"queries) in {burst_wall:.3f} s; timed window of "
+        f"{SERVE_TIMED_REQUESTS} requests ({nq} queries) in {wall:.3f} s = "
+        f"{nq / wall:.1f} QPS; latency over every request of the window "
+        f"(client side) p50 {res['ivf']['latency_p50_ms']:.2f} ms, p99 "
+        f"{res['ivf']['latency_p99_ms']:.2f} ms, max {took_ms[-1]:.2f} ms "
+        f"(daemon ring: p50 {health['latency_p50_ms']} ms, p99 "
+        f"{health['latency_p99_ms']} ms); {SERVE_TIMED_REQUESTS} requests in "
+        f"{len(timed)} device passes; recall@10 vs the exact oracle "
+        f"{recall:.4f} over {len(embs)} served queries (queries from the "
+        f"store's own distribution: {recall_in:.4f}); every answer EQUAL to "
+        f"IVFIndex.search of its query embeddings; full probe agrees with "
+        f"the oracle (integer queries EQUAL); /add /remove /save /reload "
+        f"ok; ivf_probe launches of the daemon's own work {ivf_k6} "
+        f"(start-up {start_k['ivf_probe']}, burst {burst_k['ivf_probe']} = "
+        f"its {searches} searches, window {timed_k['ivf_probe']}); one pass "
+        f"of {breakdown['queries']} queries (ms): " + ", ".join(
             f"{k[:-3]} {v:.3f}" for k, v in breakdown.items()
             if k.endswith("_ms")))
-    if res["ivf"]["ivf_probe_launches"] <= 0:
-        raise AssertionError("the IVF daemon launched no ivf_probe")
 
     # --- flat daemon over the same store (K1)
-    dmn = _Daemon(["--index", store, "--hbm-dtype", "int8", *common])
+    with _counted(own) as flat_k:
+        dmn = _Daemon(["--index", store, "--hbm-dtype", "int8", *common])
     try:
         sent = draw(3)
-        answers = [_http(dmn.url, "/search", {"queries": t, "k": K})
-                   for t in sent]
+        with _counted(own) as span:
+            answers = [_http(dmn.url, "/search", {"queries": t, "k": K})
+                       for t in sent]
         _check_served("flat", dmn, sent, answers)
     finally:
         dmn.close()
-    res["flat_start_s"] = dmn.start_s
+    flat_k1 = flat_k["extract_topk"] + span["extract_topk"]
+    if span["extract_topk"] <= 0:
+        raise AssertionError("the flat daemon's requests launched no "
+                             "extract_topk")
+    res["flat"] = {"start_s": dmn.start_s, "extract_topk_launches": flat_k1}
     log(f"[serve] flat int8 daemon: {len(sent)} requests, every answer EQUAL "
-        "to FlatIPIndex.search of its query embeddings")
+        "to FlatIPIndex.search of its query embeddings; extract_topk "
+        f"launches of its own work {flat_k1} (requests {span['extract_topk']})")
 
     # --- IVFPQ (SERVE_PQ_M x 4-bit) + exact refine over the flat disk store
-    lines, t_pq = _call_cli(cli_index.main, [
-        *ivf_cli, "--pq-m", str(SERVE_PQ_M), "--pq-bits", "4"])
-    dmn = _Daemon(["--index", store, "--ivf", "--refine-factor", "4",
-                   *common])
+    with _counted(own):
+        lines, t_pq = _call_cli(cli_index.main, [
+            *ivf_cli, "--pq-m", str(SERVE_PQ_M), "--pq-bits", "4"])
+        dmn = _Daemon(["--index", store, "--ivf", "--refine-factor", "4",
+                       *common])
     try:
         if not dmn.svc.index.is_pq:
             raise AssertionError("the PQ daemon did not load a PQ store")
         sent = draw(3)
-        answers = [_http(dmn.url, "/search", {"queries": t, "k": K})
-                   for t in sent]
+        with _counted(own):
+            answers = [_http(dmn.url, "/search", {"queries": t, "k": K})
+                       for t in sent]
         _check_served("ivfpq refine", dmn, sent, answers)
         health = _http(dmn.url, "/healthz")
     finally:
@@ -1565,6 +1658,7 @@ def phase_serve(ctx):
         "RefinedIndex.search of its query embeddings")
     ctx["serve"] = res
     shutil.rmtree(WORK, ignore_errors=True)
+    return own
 
 
 def smi_line():
@@ -1676,10 +1770,12 @@ def main(argv=None) -> int:
             ("train", phase_train,
              ("attention_train_fwd", "attention_train_bwd")),
             ("pipeline", phase_pipeline, ("extract_topk", "attention_infer")),
-            ("serve", phase_serve, ("ivf_probe",))):
+            ("serve", phase_serve, ("ivf_probe", "extract_topk"))):
         reset_launches()
-        run(name, fn)
-        window = read_launches()
+        own = run(name, fn)
+        # the serve phase checks its answers through the same kernels, so
+        # it counts its path's own spans apart and returns them
+        window = read_launches() if own is None else own
         log(f"[{name}] kernel launches: {window}")
         missing = [k for k in needs if window[k] <= 0]
         if missing:
