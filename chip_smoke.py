@@ -16,14 +16,22 @@ Phases (each raises on any failure; the script then exits non-zero):
    values agree within 1e-5 of the largest score and every emitted
    position scores its slot's value. K3/K4/K5 (H=12, D=64; the passage
    tower's B=240, L=256, the query tower's B=8, L=30, packed rows with
-   segments, the query encode's B=512, L=30; dropout 0.1, one seed):
+   segments, the query encode's B=512, L=30; dropout 0.1, one seed; and
+   bf16 rows of 512, which keep the tiled kernels of attention.cu):
    outputs and dq/dk/dv within 1e-5 of the largest magnitude in fp32 and
-   2e-2 in bf16. K6 at the full-corpus serving store (8,388,608 x 768
+   2e-2 in bf16. At the passage shape the bf16 route of K3/K4
+   (attention_sm90.cu) is also held EQUAL to the plain versions for out
+   and dv on inputs where every value is exact in bf16 (q = 0, one-hot v
+   and g: one wrong dropout bit fails), and two launches must give the
+   same bits. K6 at the full-corpus serving store (8,388,608 x 768
    int8 with scales, slot 2,048) with B=8 and B=128, P=32, at 1,048,576
    bf16 rows with B=8, and with duplicate probes: EQUAL on
    integer-valued inputs, within 1e-5 on normal data. Each kernel is
    timed against its plain version, its bound and, for attention,
-   scaled_dot_product_attention (K6: a gather + bf16 bmm, no one call).
+   scaled_dot_product_attention (K6: a gather + bf16 bmm, no one call);
+   K3/K4 at the passage shape and at the packed one (64 rows of 256 with
+   segments). Attention times are device times (torch.profiler), with
+   CUDA events around back-to-back calls beside them.
 3. search: FlatIPIndex stood up on the device at MS MARCO scale
    (8,847,360 x 768 int8 with scales, then 1,048,576 x 768 bf16). K1 is
    first held to its plain version at the int8 store's own shape (EQUAL
@@ -39,7 +47,8 @@ Phases (each raises on any failure; the script then exits non-zero):
    4 steps each), cli.train runs 8 steps with --pack-passages, and a
    resume from its step-4 checkpoint must reproduce step 5's loss. Every
    loss and grad norm must be finite; K3 must launch in every
-   non-final block of both towers at every step. Prints ms per step and
+   non-final block of both towers at every step, each K3/K4 launch
+   through attention_sm90.cu. Prints ms per step and
    examples/s, flat and packed.
 5. pipeline: the CLIs index -> retrieve -> evaluate with the trained
    checkpoint over the train phase's 32,768 passages at --max-length 256
@@ -143,6 +152,39 @@ def time_ms(fn, reps=3, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms_by_name(prof, per=1):
+    """Device milliseconds by kernel name in a torch.profiler trace,
+    divided by ``per``. Annotation ranges ("Optimizer.step#AdamW.step")
+    span kernels that are counted on their own, so they are left out."""
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if (us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)
+                or evt.key.startswith("Optimizer.")):
+            continue
+        out[evt.key] = out.get(evt.key, 0.0) + us / 1e3 / per
+    return out
+
+
+def device_ms(fn, reps=20, warmup=2):
+    """Mean device milliseconds per call: the durations of every kernel
+    ``fn`` launches, summed (torch.profiler), so the host's time to issue
+    a call, which CUDA events around back-to-back calls also take in when
+    the kernels are shorter than it, is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_ms_by_name(prof, reps).values())
 
 
 def bound_ms(nbytes, ops, op_type):
@@ -377,6 +419,10 @@ def phase_kernels(ctx):
         _attn_check(ctx, "packed", TRAIN_BZ * 10, TRAIN_LP, dtype, True)
         _attn_check(ctx, "encode", SEARCH_BATCH, TRAIN_LQ, dtype, False,
                     p=0.0)
+    # rows past 256 keep the tiled kernels in bf16 too
+    _attn_check(ctx, "long", 16, 2 * TRAIN_LP, bf16, False)
+    _attn_exact_dropout(ctx, TRAIN_BZ * NWAY, TRAIN_LP)
+    _attn_determinism(ctx, TRAIN_BZ * NWAY, TRAIN_LP)
     torch.cuda.empty_cache()
     _time_attention(ctx)
     torch.cuda.empty_cache()
@@ -574,9 +620,13 @@ def _attn_inputs(ctx, b, length, dtype, segments):
     return q, k, v, g, mask, seg
 
 
-def _attn_bytes_ops(b, length, dtype, n_tensors, n_dots):
+def _attn_bytes_ops(b, length, dtype, n_tensors, n_dots, n_int=1):
+    """Bytes (each [B, L, H, D] operand and each int32 [B, L] mask or
+    segment row read or written once) and operations (n_dots products of
+    2*B*H*L*L*D) of one attention launch."""
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = n_tensors * b * HEADS * length * HEAD_DIM * item + 4 * b * length
+    nbytes = (n_tensors * b * HEADS * length * HEAD_DIM * item
+              + 4 * n_int * b * length)
     return nbytes, n_dots * 2 * b * HEADS * length * length * HEAD_DIM
 
 
@@ -616,71 +666,155 @@ def _attn_check(ctx, tag, b, length, dtype, segments, p=ATTN_P):
     ctx[key] = max(ctx.get(key, 0.0), *errs.values())
 
 
-def _time_attention(ctx):
-    """K3, K4 (B=240, L=256: the passage tower, bf16, p=0.1) and K5 (the
-    query encode: B=512, L=30, bf16) against their plain versions, their
-    bounds and one PyTorch call computing the same function
-    (scaled_dot_product_attention, with dropout_p for K3/K4; its
-    backward for K4), which the port never calls."""
+def _attn_exact_dropout(ctx, b, length, seed=ATTN_SEED + 1):
+    """The sm90 route on inputs where every value is exact in bf16: q = 0
+    (every probability 1/L, L a power of two), v and g one-hot over keys
+    and queries (small integers). out and dv are then sums of a few exact
+    terms, so they must EQUAL the plain versions: one wrong dropout bit
+    in either direction fails."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    dev = ctx["dev"]
+    q = torch.zeros(b, length, HEADS, HEAD_DIM, dtype=torch.bfloat16,
+                    device=dev)
+    k = torch.randn(q.shape, generator=ctx["gen"], device=dev).to(q.dtype)
+    hot = (torch.arange(length, device=dev)[:, None] % HEAD_DIM
+           == torch.arange(HEAD_DIM, device=dev)[None, :])
+    v = hot[None, :, None, :].expand(q.shape).to(q.dtype).contiguous()
+    g = (2 * v).contiguous()
+    mask = torch.ones(b, length, dtype=torch.int32, device=dev)
+    route = att._kernel_route(q.dtype, length, HEAD_DIM, "train_fwd")
+    out, stats = att._launch_fwd(q, k, v, mask, seed, ATTN_P, None, True,
+                                 "train_fwd")
+    dv = att._launch_bwd(q, k, v, mask, seed, ATTN_P, None, stats, out,
+                         g)[2]
+    ref = att.train_fwd_plain(q, k, v, mask, seed, ATTN_P)
+    ref_dv = att.train_bwd_plain(q, k, v, mask, seed, ATTN_P, None, g)[2]
+    for name, got, want in (("out", out, ref), ("dv", dv, ref_dv)):
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"attention {route} {name}: {bad} elements "
+                                 "differ from the plain version on exact "
+                                 "inputs (dropout bits disagree)")
+    log(f"[kernels] attention {route} B={b} L={length} bf16 p={ATTN_P}, "
+        f"exact inputs: out and dv EQUAL to the plain versions "
+        f"({out.numel() + dv.numel()} elements)")
+    ctx["attn_exact_elements"] = out.numel() + dv.numel()
+
+
+def _attn_determinism(ctx, b, length):
+    """Two launches of K3 + K4 on the same inputs give the same bits."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    q, k, v, g, mask, _ = _attn_inputs(ctx, b, length, torch.bfloat16,
+                                       False)
+    runs = []
+    for _ in range(2):
+        out, stats = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, None,
+                                     True, "train_fwd")
+        runs.append((out, *att._launch_bwd(q, k, v, mask, ATTN_SEED, ATTN_P,
+                                           None, stats, out, g)))
+    for name, x, y in zip(("out", "dq", "dk", "dv"), *runs):
+        if not torch.equal(x, y):
+            raise AssertionError(f"attention {name} differs between two "
+                                 "launches on the same inputs")
+    log(f"[kernels] attention B={b} L={length} bf16 p={ATTN_P}: two "
+        "launches give identical out, dq, dk and dv")
+
+
+def _time_train_attention(ctx, tag, b, segments):
+    """K3 and K4 (L=256, bf16, p=0.1) at batch ``b`` against their plain
+    versions, their bounds and scaled_dot_product_attention with the same
+    dropout (its backward for K4), which the port never calls. Packed
+    rows give SDPA their block-diagonal mask as a dense boolean one."""
     import torch.nn.functional as F
 
     from cldrd_tpu_torch.ops import attention as att
 
     rows = ctx.setdefault("timings", {})
-    bf16 = torch.bfloat16
-    b, length = TRAIN_BZ * NWAY, TRAIN_LP
-    q, k, v, g, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
-    out, stats = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, None,
+    bf16, length = torch.bfloat16, TRAIN_LP
+    q, k, v, g, mask, seg = _attn_inputs(ctx, b, length, bf16, segments)
+    out, stats = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
                                  True, "train_fwd")
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     amask = (mask != 0)[:, None, None, :]
+    if seg is not None:  # padding rows attend to themselves (no NaN rows)
+        amask = ((seg[:, None, :, None] == seg[:, None, None, :]) & amask
+                 | torch.eye(length, dtype=torch.bool, device=q.device))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
                                              dropout_p=ATTN_P)
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=amask, dropout_p=ATTN_P), reps=10)
     gt = g.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), gt, retain_graph=True), reps=10)
-    del lib_out, qt, kt, vt
-    nb3, ops3 = _attn_bytes_ops(b, length, bf16, 4, 2)
-    nb4, ops4 = _attn_bytes_ops(b, length, bf16, 7, 5)
-    rows["attention_train_fwd"] = {"train": dict(
-        ms=time_ms(lambda: att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P,
-                                           None, True, "train_fwd"), reps=10),
+    calls = {
+        "fwd": lambda: att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
+                                       True, "train_fwd"),
+        "bwd": lambda: att._launch_bwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
+                                       stats, out, g),
+        "lib_fwd": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask, dropout_p=ATTN_P),
+        "lib_bwd": lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), gt, retain_graph=True)}
+    dev_ms = {key: device_ms(fn) for key, fn in calls.items()}
+    call_ms = {key: time_ms(fn, reps=20) for key, fn in calls.items()}
+    del lib_out, qt, kt, vt, amask, calls
+    n_int = 1 if seg is None else 2
+    nb3, ops3 = _attn_bytes_ops(b, length, bf16, 4, 2, n_int)
+    nb4, ops4 = _attn_bytes_ops(b, length, bf16, 7, 5, n_int)
+    rows.setdefault("attention_train_fwd", {})[tag] = dict(
+        ms=dev_ms["fwd"], call_ms=call_ms["fwd"],
         plain_ms=time_ms(lambda: att.train_fwd_plain(q, k, v, mask,
-                                                     ATTN_SEED, ATTN_P),
+                                                     ATTN_SEED, ATTN_P, seg),
                          reps=1),
-        bound=bound_ms(nb3, ops3, "bf16"), library_ms=lib_fwd, B=b,
-        L=length)}
-    rows["attention_train_bwd"] = {"train": dict(
-        ms=time_ms(lambda: att._launch_bwd(q, k, v, mask, ATTN_SEED, ATTN_P,
-                                           None, stats, g), reps=10),
+        bound=bound_ms(nb3, ops3, "bf16"), library_ms=dev_ms["lib_fwd"],
+        library_call_ms=call_ms["lib_fwd"], B=b, L=length)
+    rows.setdefault("attention_train_bwd", {})[tag] = dict(
+        ms=dev_ms["bwd"], call_ms=call_ms["bwd"],
         plain_ms=time_ms(lambda: att.train_bwd_plain(q, k, v, mask,
-                                                     ATTN_SEED, ATTN_P, None,
+                                                     ATTN_SEED, ATTN_P, seg,
                                                      g), reps=1),
-        bound=bound_ms(nb4, ops4, "bf16"), library_ms=lib_bwd, B=b,
-        L=length)}
+        bound=bound_ms(nb4, ops4, "bf16"), library_ms=dev_ms["lib_bwd"],
+        library_call_ms=call_ms["lib_bwd"], B=b, L=length)
     del q, k, v, g, out, stats
     torch.cuda.empty_cache()
+
+
+def _time_attention(ctx):
+    """K3 and K4 at the passage tower's shape (B=240, L=256) and at the
+    packed one (64 rows of 256 with segments), K5 at the query encode's
+    (B=512, L=30), each against its plain version, its bound and one
+    PyTorch call computing the same function."""
+    import torch.nn.functional as F
+
+    from cldrd_tpu_torch.ops import attention as att
+
+    _time_train_attention(ctx, "train", TRAIN_BZ * NWAY, False)
+    _time_train_attention(ctx, "packed", 64, True)
+    rows = ctx["timings"]
+    bf16 = torch.bfloat16
     b, length = SEARCH_BATCH, TRAIN_LQ
     q, k, v, _, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
     amask = (mask != 0)[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2)
+    k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=amask)
     rows["attention_infer"] = {"encode": dict(
-        ms=time_ms(lambda: att.flash_attention(q, k, v, mask), reps=10),
+        ms=device_ms(k5), call_ms=time_ms(k5, reps=20),
         plain_ms=time_ms(lambda: att.attention_plain(q, k, v, mask), reps=3),
-        bound=bound_ms(nb5, ops5, "bf16"),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=amask), reps=10), B=b, L=length)}
+        bound=bound_ms(nb5, ops5, "bf16"), library_ms=device_ms(lib),
+        library_call_ms=time_ms(lib, reps=20), B=b, L=length)}
     for name, tag in (("attention_train_fwd", "train"),
                       ("attention_train_bwd", "train"),
+                      ("attention_train_fwd", "packed"),
+                      ("attention_train_bwd", "packed"),
                       ("attention_infer", "encode")):
         r = rows[name][tag]
-        log(f"[time] {name} B={r['B']} L={r['L']} bf16: kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"scaled_dot_product_attention {r['library_ms']:.3f} ms, bound "
+        log(f"[time] {name} {tag} B={r['B']} L={r['L']} bf16: kernel "
+            f"{r['ms']:.3f} ms on the device ({r['call_ms']:.3f} ms a call "
+            f"back to back), plain {r['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention {r['library_ms']:.3f} ms "
+            f"({r['library_call_ms']:.3f} ms a call), bound "
             f"{r['bound'][0]:.3f} ms ({r['bound'][1]})")
 
 
@@ -992,20 +1126,11 @@ def _profile_steps(ctx, corpus, train_file, n_steps=3):
                 step(i)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_class, by_name = {}, {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-            # annotation ranges ("Optimizer.step#AdamW.step") span kernels
-            # that are counted on their own
-            if (us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
-                    or getattr(evt, "is_user_annotation", False)
-                    or evt.key.startswith("Optimizer.")):
-                continue
-            ms = us / 1e3 / n_steps
-            cls = _kernel_class(evt.key)
+        by_class = {}
+        by_name = _device_ms_by_name(prof, n_steps)
+        for name, ms in by_name.items():
+            cls = _kernel_class(name)
             by_class[cls] = by_class.get(cls, 0.0) + ms
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
         busy = sum(by_class.values())
         rows = batch.get("packed_passages", batch.get(
             "nway_passages"))["input_ids"].shape
@@ -1060,6 +1185,7 @@ def phase_train(ctx):
               "--batch-size", str(TRAIN_BZ), "--run-folder", runs]
     try:
         before = att.LAUNCHES["train_fwd"]
+        entries = dict(att.ENTRY_LAUNCHES)
         _, t_cur = _call_cli(cli_curriculum.main, [
             "--queries", ctx["corpus"]["queries"],
             "--passages", ctx["corpus"]["collection"],
@@ -1072,6 +1198,12 @@ def phase_train(ctx):
             raise AssertionError(f"{k3_flat} K3 launches in {flat_steps} "
                                  f"flat steps ({2 * (N_LAYERS - 1)} a step "
                                  "expected)")
+        # every train-attention launch of the path takes the sm90 kernels
+        sm90 = {e: att.ENTRY_LAUNCHES[e] - entries[e]
+                for e in ("attn_fwd_sm90_launch", "attn_bwd_sm90_launch")}
+        if set(sm90.values()) != {k3_flat}:
+            raise AssertionError(f"{sm90} of {k3_flat} flat K3/K4 launches "
+                                 "took the sm90 kernels")
         train = ["--queries-path", ctx["corpus"]["queries"],
                  "--passages-path", ctx["corpus"]["collection"],
                  "--training-path", files["8"], "--label-mode", "8",
@@ -1130,7 +1262,8 @@ def phase_train(ctx):
         os.path.join(runs, "curriculum_iter3"))
     log(f"[train] cli.curriculum, 3 iterations x {TRAIN_EXAMPLES // TRAIN_BZ}"
         f" steps (bz {TRAIN_BZ}, nway {NWAY}, Lq {TRAIN_LQ}, Lp {TRAIN_LP}, "
-        f"bf16, dropout 0.1, flat): {t_cur:.1f} s, {k3_flat} K3 launches; "
+        f"bf16, dropout 0.1, flat): {t_cur:.1f} s, {k3_flat} K3 launches, "
+        f"all through attn_fwd_sm90/attn_bwd_sm90; "
         f"cli.train --pack-passages: {t_pack:.1f} s; resume from step "
         f"{RESUME_STEP}: {t_res:.1f} s, step {nxt} loss {resumed!r} "
         f"{'EQUAL to' if resumed == straight else 'within 1e-6 of'} the "
@@ -1682,7 +1815,7 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
         "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
         "shape": tag,
     }
-    for key in ("matmul_ms", "library_note"):
+    for key in ("matmul_ms", "library_note", "call_ms", "library_call_ms"):
         if key in t:
             rec[key] = t[key]
     return rec
@@ -1694,10 +1827,12 @@ KERNELS = [
      "cldrd_tpu/search/mips.py:605", "int8_full", "k1_err"),
     ("fused_binmax", ("fused_binmax", None), "csrc/fused_binmax.cu",
      "cldrd_tpu/search/mips.py:361", "bf16_1M", "k2_err"),
-    ("attention_train_fwd", ("attention", "train_fwd"), "csrc/attention.cu",
-     "cldrd_tpu/ops/attention.py:204", "train", "attn_err_bf16"),
-    ("attention_train_bwd", ("attention", "train_bwd"), "csrc/attention.cu",
-     "cldrd_tpu/ops/attention.py:257", "train", "attn_err_bf16"),
+    ("attention_train_fwd", ("attention", "train_fwd"),
+     "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:204", "train",
+     "attn_err_bf16"),
+    ("attention_train_bwd", ("attention", "train_bwd"),
+     "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:257", "train",
+     "attn_err_bf16"),
     ("attention_infer", ("attention", "infer"), "csrc/attention.cu",
      "cldrd_tpu/ops/attention.py:61", "encode", "attn_err_bf16"),
     ("ivf_probe", ("ivf_probe", None), "csrc/ivf_probe.cu",

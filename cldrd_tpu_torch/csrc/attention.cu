@@ -1,5 +1,8 @@
 // K3/K5: fused attention forward, K4: its backward, for the DistilBERT
-// encoder's training and encode paths.
+// encoder's training and encode paths: the route for fp32, head_dim 32,
+// rows of 256 < L <= 512, and K5 (ops/attention.py::_kernel_route).
+// bf16 training launches with head_dim 64 and L <= 256 (every
+// train-attention launch of the main path) take attention_sm90.cu.
 //
 // Replaces the TPU kernels cldrd_tpu/ops/attention.py::
 //   _train_fwd_kernel_factory (K3, launched by _train_fwd),
@@ -40,7 +43,8 @@
 //   operands as the forward, so the probs are the forward's bit for bit.
 #include <math.h>
 
-#include "score_tile.cuh"  // allow_dynamic_smem, MAX_DEVICES
+#include "attn_common.cuh"  // hash_keep, masked_score, MASKED
+#include "score_tile.cuh"   // allow_dynamic_smem, MAX_DEVICES
 
 namespace cldrd_attn {
 
@@ -52,7 +56,6 @@ constexpr int TQ = 64;   // query rows per tile
 constexpr int TK = 64;   // key rows per tile
 constexpr int NT = 128;  // threads per block: 4 warps x 16 rows
 constexpr int SLD = TK + 4;  // fp32 stride of a warp's 16 x 64 tile
-constexpr float MASKED = -1e9f;
 
 template <typename T>
 struct Tr;
@@ -93,22 +96,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// _hash_keep: murmur3-style finalizer of (element index ^ seed), all
-// uint32 (multiplies wrap, shifts are logical); keep when the top 24 bits,
-// as a fraction of 2^24, reach p. The constants are the reference's int32
-// -1028477379 (0xC2B2AE3D) and -2048144789 (0x85EBCA6B).
-__device__ __forceinline__ bool hash_keep(uint32_t idx, uint32_t seed,
-                                          float p) {
-  uint32_t x = idx ^ seed;
-  x *= 0xC2B2AE3Du;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE3Du;
-  x ^= x >> 16;
-  return (float)(x >> 8) * 5.9604644775390625e-08f >= p;
 }
 
 __host__ __device__ constexpr int align128(int bytes) {
@@ -292,16 +279,6 @@ __device__ __forceinline__ void load_key_meta(const int* __restrict__ mask,
     kmask[i] = l < L ? (mask[(long long)b * L + l] != 0) : -1;
     kseg[i] = (seg != nullptr && l < L) ? seg[(long long)b * L + l] : 0;
   }
-}
-
-// the masked fp32 score: -inf past L (contributes nothing), -1e9 where
-// the key is masked or in another segment
-template <bool SEG>
-__device__ __forceinline__ float masked_score(float s, int km, int ks,
-                                              int qs) {
-  if (km < 0) return -INFINITY;
-  const bool ok = km != 0 && (!SEG || qs == ks);
-  return ok ? s : MASKED;
 }
 
 // shared memory of one tile [64 x (D + PAD)] of T, 128-byte aligned

@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, object] = {}  # (stem, entry point) -> typed function
 BUILD_SECONDS: Dict[str, float] = {}  # per source, from the last build
 
 
@@ -155,9 +156,12 @@ def launch(stem: str, fn_name: str, argtypes, *args, device) -> None:
     ``cudaError_t``."""
     import torch
 
-    fn = getattr(load(stem), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn = _FNS.get((stem, fn_name))
+    if fn is None:
+        fn = getattr(load(stem), fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        _FNS[(stem, fn_name)] = fn
     with torch.cuda.device(device):
         status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if status != 0:

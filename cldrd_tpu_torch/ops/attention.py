@@ -4,8 +4,13 @@ Replaces the TPU kernels of ``cldrd_tpu/ops/attention.py``:
 
 - K3 ``_train_fwd_kernel_factory`` and K4 ``_train_bwd_kernel_factory``
   become ``flash_attention_train``, a ``torch.autograd.Function`` whose
-  forward and backward are the CUDA kernels of ``csrc/attention.cu``,
-  with attention-probs dropout computed inside them from a counter hash;
+  forward and backward are CUDA kernels, with attention-probs dropout
+  computed inside them from a counter hash. ``_kernel_route`` picks the
+  kernels by dtype and shape alone: bf16 with ``head_dim`` 64 and
+  ``L <= 256`` (every train-attention launch of the main path) takes the
+  Hopper kernels of ``csrc/attention_sm90.cu`` (one pass, rows held in
+  shared memory, ``cp.async``, ``wgmma``); fp32, ``head_dim`` 32 and
+  ``256 < L <= 512`` take the tiled kernels of ``csrc/attention.cu``;
 - K5 ``_attention_kernel`` becomes ``flash_attention``: its forward is
   K3's kernel with no dropout and no segments, its backward recomputes
   through the plain einsum form, as the reference's backward is XLA
@@ -26,11 +31,13 @@ unsigned arithmetic with logical shifts; ``hash_keep`` and
 Each kernel has its plain PyTorch version beside it (``*_plain``), which
 repeats the reference kernel's arithmetic: a wrapper takes it for CPU
 tensors only, and on a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches by name.
+``LAUNCHES`` counts kernel launches by name, ``ENTRY_LAUNCHES`` by the C
+entry point they went through.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -42,6 +49,10 @@ NEG_INF = -1e9
 HEAD_DIMS = (32, 64)
 MAX_LEN = 512
 LAUNCHES = {"train_fwd": 0, "train_bwd": 0, "infer": 0}
+# the Hopper route's reach: bf16, head_dim 64, rows up to 256
+SM90_HEAD_DIM, SM90_MAX_LEN = 64, 256
+ENTRY_LAUNCHES = {"attn_fwd_launch": 0, "attn_bwd_launch": 0,
+                  "attn_fwd_sm90_launch": 0, "attn_bwd_sm90_launch": 0}
 
 _M32 = 0xFFFFFFFF
 # the reference's int32 constants -1028477379 and -2048144789 as uint32
@@ -90,6 +101,17 @@ def dropout_keep_mask(bsz: int, n_heads: int, q_len: int, k_len: int,
 def _in_dtype(x: float, dtype) -> torch.Tensor:
     """A Python float rounded to ``dtype`` (a 0-d tensor)."""
     return torch.tensor(x, dtype=torch.float64).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _scalars(dropout_p: float, head_dim: int, dtype) -> Tuple[float, ...]:
+    """The launchers' (inv, inv32, scale, scale32): 1/(1-p) and
+    1/sqrt(head_dim) rounded to the compute dtype and to fp32."""
+    inv, scale = 1.0 / (1.0 - dropout_p), 1.0 / math.sqrt(head_dim)
+    return (float(_in_dtype(inv, dtype)),
+            float(_in_dtype(inv, torch.float32)),
+            float(_in_dtype(scale, dtype)),
+            float(_in_dtype(scale, torch.float32)))
 
 
 # ---------------------------------------------------------- plain versions
@@ -211,6 +233,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _kernel_route(dtype, length: int, head_dim: int, name: str) -> str:
+    """The CUDA kernels a launch takes, by dtype and shape alone: "sm90"
+    (``csrc/attention_sm90.cu``) for bf16 training launches with head_dim
+    64 and L <= 256; "tiled" (``csrc/attention.cu``) for everything else:
+    fp32, head_dim 32, 256 < L <= 512, and K5 (``name == "infer"``)."""
+    if (name != "infer" and dtype == torch.bfloat16
+            and head_dim == SM90_HEAD_DIM and length <= SM90_MAX_LEN):
+        return "sm90"
+    return "tiled"
+
+
+def _aligned(name, *tensors):
+    """The sm90 kernels copy 16-byte vectors: every operand starts on a
+    16-byte boundary."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
 def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
                 name):
     _check(name, q, k, v, mask, segment_ids)
@@ -220,40 +261,73 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
     out = torch.empty_like(q)
     stats = (torch.empty((b, h, length, 2), dtype=torch.float32,
                          device=q.device) if with_stats else None)
-    inv = float(_in_dtype(1.0 / (1.0 - dropout_p), q.dtype))
-    scale = float(_in_dtype(1.0 / math.sqrt(d), q.dtype))
-    _build.launch(
-        "attention", "attn_fwd_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_float] * 3,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), _ptr(seg),
-        out.data_ptr(), _ptr(stats), _build.dtype_code(q.dtype), b, length,
-        h, d, _seed32(seed), float(dropout_p), inv, scale, device=q.device)
+    inv, _, scale, _ = _scalars(float(dropout_p), d, q.dtype)
+    if _kernel_route(q.dtype, length, d, name) == "sm90":
+        _aligned(name, q, k, v, out)
+        entry = "attn_fwd_sm90_launch"
+        _build.launch(
+            "attention_sm90", entry,
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 3,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            _ptr(seg), out.data_ptr(), _ptr(stats), b, length, h,
+            _seed32(seed), float(dropout_p), inv, scale, device=q.device)
+    else:
+        entry = "attn_fwd_launch"
+        _build.launch(
+            "attention", entry,
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 3,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            _ptr(seg), out.data_ptr(), _ptr(stats),
+            _build.dtype_code(q.dtype), b, length, h, d, _seed32(seed),
+            float(dropout_p), inv, scale, device=q.device)
     LAUNCHES[name] += 1
+    ENTRY_LAUNCHES[entry] += 1
     return out, stats
 
 
-def _launch_bwd(q, k, v, mask, seed, dropout_p, segment_ids, stats, g):
+def _launch_bwd(q, k, v, mask, seed, dropout_p, segment_ids, stats, out,
+                g):
+    """K4: (dq, dk, dv) from the forward's (max, sum) residual ``stats``
+    and its output ``out`` (the sm90 kernels take rowsum(g * out))."""
     _check("train_bwd", q, k, v, mask, segment_ids, g)
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     mask, seg = _i32(mask), _i32(segment_ids)
     b, length, h, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dsum = torch.empty((b, h, length), dtype=torch.float32, device=q.device)
-    inv = float(_in_dtype(1.0 / (1.0 - dropout_p), q.dtype))
-    inv32 = float(_in_dtype(1.0 / (1.0 - dropout_p), torch.float32))
-    scale = float(_in_dtype(1.0 / math.sqrt(d), q.dtype))
-    scale32 = float(_in_dtype(1.0 / math.sqrt(d), torch.float32))
-    _build.launch(
-        "attention", "attn_bwd_launch",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-        + [ctypes.c_float] * 5,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), _ptr(seg),
-        g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dsum.data_ptr(), _build.dtype_code(q.dtype), b,
-        length, h, d, _seed32(seed), float(dropout_p), inv, inv32, scale,
-        scale32, device=q.device)
+    inv, inv32, scale, scale32 = _scalars(float(dropout_p), d, q.dtype)
+    if _kernel_route(q.dtype, length, d, "train_bwd") == "sm90":
+        if out is None or out.shape != q.shape or out.dtype != q.dtype:
+            raise ValueError("train_bwd: the sm90 kernels need the "
+                             "forward's output")
+        out = out.contiguous()
+        _aligned("train_bwd", q, k, v, g, out, dq, dk, dv)
+        entry = "attn_bwd_sm90_launch"
+        _build.launch(
+            "attention_sm90", entry,
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 5,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            _ptr(seg), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, length, h,
+            _seed32(seed), float(dropout_p), inv, inv32, scale, scale32,
+            device=q.device)
+    else:
+        dsum = torch.empty((b, h, length), dtype=torch.float32,
+                           device=q.device)
+        entry = "attn_bwd_launch"
+        _build.launch(
+            "attention", entry,
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 5,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            _ptr(seg), g.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
+            _build.dtype_code(q.dtype), b, length, h, d, _seed32(seed),
+            float(dropout_p), inv, inv32, scale, scale32, device=q.device)
     LAUNCHES["train_bwd"] += 1
+    ENTRY_LAUNCHES[entry] += 1
     return dq, dk, dv
 
 
@@ -280,19 +354,20 @@ class _TrainAttention(torch.autograd.Function):
         else:
             out, stats = _launch_fwd(q, k, v, mask, seed, dropout_p,
                                      segment_ids, True, "train_fwd")
-        ctx.save_for_backward(q, k, v, mask, segment_ids, stats)
+        ctx.save_for_backward(q, k, v, mask, segment_ids, stats,
+                              None if stats is None else out)
         ctx.seed, ctx.dropout_p = seed, dropout_p
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask, segment_ids, stats = ctx.saved_tensors
+        q, k, v, mask, segment_ids, stats, out = ctx.saved_tensors
         if stats is None:
             grads = train_bwd_plain(q, k, v, mask, ctx.seed, ctx.dropout_p,
                                     segment_ids, g)
         else:
             grads = _launch_bwd(q, k, v, mask, ctx.seed, ctx.dropout_p,
-                                segment_ids, stats, g)
+                                segment_ids, stats, out, g)
         return (*grads, None, None, None, None)
 
 

@@ -206,3 +206,19 @@ def test_wrappers_route_by_device():
         ta.flash_attention(q, q, q, mask)
     with pytest.raises(ValueError, match="no route"):
         ta.flash_attention_train(q, q, q, mask, 0, 0.1)
+
+
+@pytest.mark.parametrize("dtype,length,d,name,route", [
+    (torch.bfloat16, 256, 64, "train_fwd", "sm90"),   # passages
+    (torch.bfloat16, 30, 64, "train_bwd", "sm90"),    # queries
+    (torch.bfloat16, 1, 64, "train_fwd", "sm90"),
+    (torch.bfloat16, 257, 64, "train_fwd", "tiled"),  # long rows
+    (torch.bfloat16, 512, 64, "train_bwd", "tiled"),
+    (torch.float32, 256, 64, "train_fwd", "tiled"),
+    (torch.bfloat16, 256, 32, "train_bwd", "tiled"),
+    (torch.bfloat16, 30, 64, "infer", "tiled"),       # K5 keeps its kernel
+])
+def test_kernel_route_by_dtype_and_shape(dtype, length, d, name, route):
+    """Which CUDA kernels a launch takes is a function of dtype, head_dim,
+    L and the wrapper's name alone, pinned here without a card."""
+    assert ta._kernel_route(dtype, length, d, name) == route

@@ -10,7 +10,13 @@ kernels' outputs must be EQUAL to the plain versions, ties included. The
 attention kernels (K3/K4/K5) agree within 1e-5 of the largest magnitude
 in fp32 (fp32 sums in other orders; one wrong dropout bit would show as
 about |v|/L) and 2e-2 in bf16 (one bf16 ulp of a probability near 1).
+bf16 training launches with head_dim 64 and L <= 256 take the Hopper
+kernels (csrc/attention_sm90.cu); on inputs where every value is exact
+in bf16 their out and dv must EQUAL the plain versions, so a single
+wrong dropout bit fails, and two launches must give the same bits.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -225,18 +231,28 @@ def _rel(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,length,h,d,p,segments", [
     (3, 30, 12, 64, 0.1, False),    # the query tower: a ragged tile
+    (3, 30, 12, 64, 0.0, False),
+    (3, 30, 12, 64, 0.1, True),
+    (3, 30, 12, 64, 0.0, True),
     (2, 200, 12, 64, 0.1, False),
+    (2, 200, 12, 64, 0.0, False),
+    (2, 200, 12, 64, 0.1, True),
+    (2, 200, 12, 64, 0.0, True),
     (2, 256, 12, 64, 0.1, True),    # packed rows
+    (2, 256, 12, 64, 0.0, True),
+    (2, 256, 12, 64, 0.1, False),   # passages
+    (2, 256, 12, 64, 0.0, False),
     (2, 77, 4, 32, 0.0, False),
     (1, 512, 2, 64, 0.2, False),
 ])
 def test_train_attention_equals_plain(dtype, b, length, h, d, p, segments):
     """K3 forward and K4 backward through flash_attention_train against
-    the plain versions on the same seed."""
+    the plain versions on the same seed, through the kernels their route
+    names (bf16 with head_dim 64 and L <= 256: attention_sm90.cu)."""
     dev = _device()
     q, k, v, gr, mask, seg = _attn_inputs(dev, b, length, h, d, dtype,
                                           segments)
-    before = dict(att.LAUNCHES)
+    before, entries = dict(att.LAUNCHES), dict(att.ENTRY_LAUNCHES)
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
     out = att.flash_attention_train(qs, ks, vs, mask, 4321, p, seg)
     out.backward(gr)
@@ -245,6 +261,10 @@ def test_train_attention_equals_plain(dtype, b, length, h, d, p, segments):
     torch.cuda.synchronize()
     assert att.LAUNCHES["train_fwd"] == before["train_fwd"] + 1
     assert att.LAUNCHES["train_bwd"] == before["train_bwd"] + 1
+    sm90 = att._kernel_route(dtype, length, d, "train_fwd") == "sm90"
+    for entry in ("attn_fwd", "attn_bwd"):
+        entry += "_sm90_launch" if sm90 else "_launch"
+        assert att.ENTRY_LAUNCHES[entry] == entries[entry] + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for got, want in ((out, ref), (qs.grad, rq), (ks.grad, rk),
                       (vs.grad, rv)):
@@ -279,3 +299,107 @@ def test_attention_wrappers_raise_on_shapes_the_kernels_do_not_take():
         att.flash_attention(q.half(), k.half(), v.half(), mask)
     with pytest.raises(ValueError):  # operands on two devices
         att.flash_attention(q, k.cpu(), v, mask)
+
+
+# ------------------------------------------- the Hopper (sm90) attention
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1, 2, 3])
+def test_sm90_wgmma_layouts_equal_matmul(form):
+    """One 64x64x64 wgmma product in each operand form the sm90 kernels
+    use, on small integers (exact in bf16 and in fp32 sums): EQUAL to the
+    matmul it stands for."""
+    dev = _device()
+    from cldrd_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(form)
+    a, b = (torch.randint(-3, 4, (64, 64), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    c = torch.empty(64, 64, dtype=torch.float32, device=dev)
+    _build.launch("attention_sm90", "attn_sm90_mma_check",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int], a.data_ptr(),
+                  b.data_ptr(), c.data_ptr(), form, device=dev)
+    torch.cuda.synchronize()
+    af, bf = a.float(), b.float()
+    want = {0: af @ bf.T, 1: af.T @ bf, 2: af @ bf, 3: af @ bf}[form]
+    assert torch.equal(c, want)
+
+
+def _exact_inputs(dev, b, length, h):
+    """q = 0, so every probability is 1/L (exact in bf16 for L a power
+    of two); v and g one-hot over keys and queries: out and dv are sums
+    of a few exact terms, so they must EQUAL the plain versions."""
+    q = torch.zeros(b, length, h, 64, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    k = torch.randn(b, length, h, 64, generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % 64 == torch.arange(64, device=dev)[None, :])
+    v = hot[None, :, None, :].expand(b, length, h, 64).to(torch.bfloat16)
+    mask = torch.ones(b, length, dtype=torch.int32, device=dev)
+    return q, k, v.contiguous(), (2 * v).contiguous(), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [64, 256])
+def test_sm90_dropout_is_bit_exact(length):
+    """out and dv of the sm90 kernels EQUAL the plain versions where
+    every value is exact in bf16: one wrong keep bit in either direction
+    fails."""
+    dev = _device()
+    q, k, v, gr, mask = _exact_inputs(dev, 2, length, 4)
+    out, stats = att._launch_fwd(q, k, v, mask, 31, 0.1, None, True,
+                                 "train_fwd")
+    _, _, dv = att._launch_bwd(q, k, v, mask, 31, 0.1, None, stats, out,
+                               gr)
+    ref = att.train_fwd_plain(q, k, v, mask, 31, 0.1)
+    _, _, rv = att.train_bwd_plain(q, k, v, mask, 31, 0.1, None, gr)
+    torch.cuda.synchronize()
+    assert ref.abs().max() > 0 and rv.abs().max() > 0
+    assert torch.equal(out, ref)
+    assert torch.equal(dv, rv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True])
+def test_sm90_is_deterministic(segments):
+    """Two launches of the sm90 kernels on the same inputs give the same
+    bits for out, dq, dk and dv."""
+    dev = _device()
+    q, k, v, gr, mask, seg = _attn_inputs(dev, 2, 256, 4, 64,
+                                          torch.bfloat16, segments, 3)
+    runs = []
+    for _ in range(2):
+        out, stats = att._launch_fwd(q, k, v, mask, 77, 0.1, seg, True,
+                                     "train_fwd")
+        runs.append((out, *att._launch_bwd(q, k, v, mask, 77, 0.1, seg,
+                                           stats, out, gr)))
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,length,d,route", [
+    (torch.bfloat16, 256, 64, "sm90"),
+    (torch.bfloat16, 257, 64, "tiled"),
+    (torch.float32, 256, 64, "tiled"),
+    (torch.bfloat16, 256, 32, "tiled"),
+])
+def test_route_boundary_by_launch_name(dtype, length, d, route):
+    """L=256 bf16 takes the sm90 kernels; L=257, fp32 and head_dim 32
+    take the tiled ones, each counted by its C entry point."""
+    dev = _device()
+    q, k, v, gr, mask, _ = _attn_inputs(dev, 1, length, 2, d, dtype, False)
+    before = dict(att.ENTRY_LAUNCHES)
+    qs = q.clone().requires_grad_()
+    att.flash_attention_train(qs, k, v, mask, 3, 0.1).backward(gr)
+    torch.cuda.synchronize()
+    after = dict(att.ENTRY_LAUNCHES)
+    suffix = "_sm90_launch" if route == "sm90" else "_launch"
+    other = "_launch" if route == "sm90" else "_sm90_launch"
+    for direction in ("attn_fwd", "attn_bwd"):
+        assert after[direction + suffix] == before[direction + suffix] + 1
+        assert after[direction + other] == before[direction + other]
+    assert att._kernel_route(dtype, length, d, "train_fwd") == route
