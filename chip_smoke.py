@@ -19,19 +19,25 @@ Phases (each raises on any failure; the script then exits non-zero):
    segments, the query encode's B=512, L=30; dropout 0.1, one seed; and
    bf16 rows of 512, which keep the tiled kernels of attention.cu):
    outputs and dq/dk/dv within 1e-5 of the largest magnitude in fp32 and
-   2e-2 in bf16. At the passage shape the bf16 route of K3/K4
-   (attention_sm90.cu) is also held EQUAL to the plain versions for out
-   and dv on inputs where every value is exact in bf16 (q = 0, one-hot v
-   and g: one wrong dropout bit fails), and two launches must give the
-   same bits. K6 at the full-corpus serving store (8,388,608 x 768
+   2e-2 in bf16. At the passage, query and packed shapes, with the main
+   path's padding, the bf16 route of K3/K4 (attention_sm90.cu) is also
+   held EQUAL to the plain versions for out, dv, dq and dk on inputs
+   where every value is exact in bf16 (every score of a row equal, one-hot
+   v, small-integer g: one wrong dropout bit, row sum or dS element
+   fails), and its dq and dk within a per-element bound (one bf16 ulp
+   per dS term, fp32 sums in another order) on normal data and on the
+   model's own train-attention calls of one flat step at full width;
+   two launches must give the same bits.
+   K6 at the full-corpus serving store (8,388,608 x 768
    int8 with scales, slot 2,048) with B=8 and B=128, P=32, at 1,048,576
    bf16 rows with B=8, and with duplicate probes: EQUAL on
    integer-valued inputs, within 1e-5 on normal data. Each kernel is
    timed against its plain version, its bound and, for attention,
    scaled_dot_product_attention (K6: a gather + bf16 bmm, no one call);
    K3/K4 at the passage shape and at the packed one (64 rows of 256 with
-   segments). Attention times are device times (torch.profiler), with
-   CUDA events around back-to-back calls beside them.
+   segments), beside the tiled kernels of attention.cu on the same
+   inputs. Every time in the kernels line is a device time: the summed
+   durations of the kernels one call launches (torch.profiler).
 3. search: FlatIPIndex stood up on the device at MS MARCO scale
    (8,847,360 x 768 int8 with scales, then 1,048,576 x 768 bf16). K1 is
    first held to its plain version at the int8 store's own shape (EQUAL
@@ -55,7 +61,8 @@ Phases (each raises on any failure; the script then exits non-zero):
    and 1,024 queries at 30; the retrieves encode queries with
    --attention-impl pallas (K5); the index call also builds an IVF
    companion (--ivf-nlist 16).
-6. serve: a clustered 1,048,576 x 768 int8 store (from --seed) gets an
+6. serve: a clustered 1,048,576 x 768 int8 store (from --seed, with a
+   generator of its own, so earlier phases do not change it) gets an
    IVF companion from cli.index --ivf-only (512 cells, slot 2,048, nprobe
    32), and cli.serve --ivf --hbm-dtype int8 serves it with the trained
    checkpoint: 8 client threads send a burst of 64 /search requests of 1-8
@@ -64,9 +71,10 @@ Phases (each raises on any failure; the script then exits non-zero):
    and scores), and each of those searches must launch K6 once; at full
    probe answers agree with the exact oracle, and integer-valued queries
    EQUAL it. Prints recall@10 at nprobe 32 against the oracle (for the
-   served queries and for queries drawn from the store's own
-   distribution), the window's QPS and p50/p99 over all its requests,
-   requests against device batches and one pass's time by stage; runs
+   served queries, beside their mean pairwise cosine, and for queries
+   drawn from the store's own distribution), the window's QPS and
+   p50/p99 over all its requests, requests against device batches and
+   one pass's time by stage; runs
    /add, /remove, /save and /reload once each. A flat-mode daemon (K1)
    and an IVFPQ (96 x 4-bit) daemon with --refine-factor 4 each answer a
    few requests, EQUAL to their direct search.
@@ -78,6 +86,13 @@ run, and the kernels line sums the four windows. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
 start-up and the requests they answer), counted the same way.
+With --compare-routes OUT_JSON the script builds the kernels and runs
+only phase_routes: the train phase's curriculum through each
+train-attention route (sm90, tiled, plain) from one seed, to show
+whether the route changes training (gradients, losses, the trained query
+tower's spread and recall) and to time the two kernel routes' train
+steps alternately in one process.
+
 The second-to-last line is one JSON object with every kernel's launches,
 error, times and bound; the line before it is the card's name and power
 limit from nvidia-smi; the last line is the result object.
@@ -421,8 +436,17 @@ def phase_kernels(ctx):
                     p=0.0)
     # rows past 256 keep the tiled kernels in bf16 too
     _attn_check(ctx, "long", 16, 2 * TRAIN_LP, bf16, False)
-    _attn_exact_dropout(ctx, TRAIN_BZ * NWAY, TRAIN_LP)
+    # the sm90 route, exactly and element by element, at the main path's
+    # shapes with its padding
+    for tag, b, length, segments in (
+            ("passage", TRAIN_BZ * NWAY, TRAIN_LP, False),
+            ("query", TRAIN_BZ, TRAIN_LQ, False),
+            ("packed", 64, TRAIN_LP, True)):
+        for form in ("dq", "dk"):
+            _attn_exact(ctx, tag, b, length, segments, form)
+        _attn_tight(ctx, tag, b, length, segments)
     _attn_determinism(ctx, TRAIN_BZ * NWAY, TRAIN_LP)
+    _attn_model_calls_check(ctx)
     torch.cuda.empty_cache()
     _time_attention(ctx)
     torch.cuda.empty_cache()
@@ -491,11 +515,11 @@ def _time_k6(ctx, tag, q, rows, probe, scales):
     nbytes, nb_read = _k6_bytes(q, rows, probe, scales is not None)
     ops = 2 * b * p * IVF_SLOT * rows.shape[1]
     r = dict(
-        ms=time_ms(lambda: k6.probe_scores(q, rows, probe, scales,
-                                           slot=IVF_SLOT), reps=20),
-        plain_ms=time_ms(lambda: k6.probe_scores_plain(
-            q, rows, probe, scales, slot=IVF_SLOT), reps=1),
-        gather_bmm_ms=time_ms(gather_bmm, reps=3),
+        ms=device_ms(lambda: k6.probe_scores(q, rows, probe, scales,
+                                             slot=IVF_SLOT)),
+        plain_ms=device_ms(lambda: k6.probe_scores_plain(
+            q, rows, probe, scales, slot=IVF_SLOT), reps=1, warmup=1),
+        gather_bmm_ms=device_ms(gather_bmm, reps=3, warmup=1),
         bound=bound_ms(nbytes, ops, "bf16"), bytes=nbytes,
         buckets_read=nb_read, B=b, P=p, rows=rows.shape[0],
         bytes_per_pair=b * p * IVF_SLOT * rows.shape[1] * rows.element_size())
@@ -567,27 +591,31 @@ def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
     torch.cuda.empty_cache()
     qb = q.to(torch.bfloat16)
     if c.dtype == torch.bfloat16:
-        t_mm = time_ms(lambda: torch.matmul(qb, c.T))
+        t_mm = device_ms(lambda: torch.matmul(qb, c.T), reps=3, warmup=1)
     else:  # the same product over a bf16 copy of the store
         cb = c.to(torch.bfloat16)
-        t_mm = time_ms(lambda: torch.matmul(qb, cb.T))
+        t_mm = device_ms(lambda: torch.matmul(qb, cb.T), reps=3, warmup=1)
         del cb
     torch.cuda.empty_cache()
     ot = op_type(q.dtype, c.dtype)
     rows = ctx.setdefault("timings", {})
     b1, o1 = k1_bytes_ops(bz, n, D, c.dtype, q.dtype, R2, scales is not None)
     rows.setdefault("extract_topk", {})[tag] = dict(
-        ms=time_ms(lambda: extract_topk(q, c, ids, R, R2, 128, scales)),
-        plain_ms=time_ms(lambda: extract_topk_plain(q, c, ids, R, R2, 128,
-                                                    scales), reps=1),
+        ms=device_ms(lambda: extract_topk(q, c, ids, R, R2, 128, scales),
+                     reps=5, warmup=1),
+        plain_ms=device_ms(lambda: extract_topk_plain(q, c, ids, R, R2, 128,
+                                                      scales),
+                           reps=1, warmup=1),
         bound=bound_ms(b1, o1, ot), matmul_ms=t_mm, B=bz, N=n, R=R, R2=R2)
     if k2:
         b2, o2 = k2_bytes_ops(bz, n, D, c.dtype, q.dtype, 128,
                               scales is not None)
         rows.setdefault("fused_binmax", {})[tag] = dict(
-            ms=time_ms(lambda: fused_binmax(q, c, ids, 128, scales)),
-            plain_ms=time_ms(lambda: fused_binmax_plain(q, c, ids, 128,
-                                                        scales), reps=1),
+            ms=device_ms(lambda: fused_binmax(q, c, ids, 128, scales),
+                         reps=5, warmup=1),
+            plain_ms=device_ms(lambda: fused_binmax_plain(q, c, ids, 128,
+                                                          scales),
+                               reps=1, warmup=1),
             bound=bound_ms(b2, o2, ot), matmul_ms=t_mm, B=bz, N=n)
     for kernel in ("extract_topk", "fused_binmax"):
         r = rows.get(kernel, {}).get(tag)
@@ -600,6 +628,27 @@ def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
 # ------------------------------------------------ attention vs plain
 
 
+def _attn_segments(ctx, b, length):
+    """Packed rows: 3-5 segments of 30-83 tokens a row and a padded tail;
+    returns (mask, segment ids)."""
+    dev, gen = ctx["dev"], ctx["gen"]
+    cuts = torch.randint(30, 84, (b, 5), generator=gen, device=dev).cumsum(1)
+    pos = torch.arange(length, device=dev)
+    seg = (1 + (pos[None, :, None] >= cuts[:, None, :]).sum(-1)).int()
+    seg = torch.where(pos[None] < cuts[:, -1:].clamp(max=length - 7), seg,
+                      torch.zeros_like(seg))
+    return (seg > 0).int(), seg
+
+
+def _padded_mask(ctx, b, length):
+    """A key mask padded as the main path's rows are: 1/8 to 1/3 of each
+    row real (a query's ~8 tokens of 30, a passage's 32-86 of 256)."""
+    dev = ctx["dev"]
+    n = torch.randint(max(2, length // 8), length // 3 + 2, (b, 1),
+                      generator=ctx["gen"], device=dev)
+    return (torch.arange(length, device=dev)[None] < n).int()
+
+
 def _attn_inputs(ctx, b, length, dtype, segments):
     """q, k, v, upstream grad [b, length, H, 64] and a key mask (the first
     row half padded) or, packed, 3-5 segments per row and a padded tail."""
@@ -610,13 +659,7 @@ def _attn_inputs(ctx, b, length, dtype, segments):
     mask[0, length // 2:] = 0
     seg = None
     if segments:
-        cuts = torch.randint(30, 84, (b, 5), generator=gen,
-                             device=dev).cumsum(1)
-        pos = torch.arange(length, device=dev)
-        seg = (1 + (pos[None, :, None] >= cuts[:, None, :]).sum(-1)).int()
-        seg = torch.where(pos[None] < cuts[:, -1:].clamp(max=length - 7),
-                          seg, torch.zeros_like(seg))
-        mask = (seg > 0).int()
+        mask, seg = _attn_segments(ctx, b, length)
     return q, k, v, g, mask, seg
 
 
@@ -666,40 +709,146 @@ def _attn_check(ctx, tag, b, length, dtype, segments, p=ATTN_P):
     ctx[key] = max(ctx.get(key, 0.0), *errs.values())
 
 
-def _attn_exact_dropout(ctx, b, length, seed=ATTN_SEED + 1):
-    """The sm90 route on inputs where every value is exact in bf16: q = 0
-    (every probability 1/L, L a power of two), v and g one-hot over keys
-    and queries (small integers). out and dv are then sums of a few exact
-    terms, so they must EQUAL the plain versions: one wrong dropout bit
-    in either direction fails."""
+def _attn_exact(ctx, tag, b, length, segments, form, seed=ATTN_SEED + 1,
+                p=0.5):
+    """The sm90 route on inputs where every value is exact in bf16, with
+    the main path's padding (or packed segments): v one-hot over keys, g
+    small integers, and every score of a row equal, so each probability
+    is 1/l rounded once. For ``form`` "dq": q = 0 and k one-hot over keys;
+    for "dk": q one-hot over queries and every key row e_0. At p = 0.5
+    (inv and inv32 are 2, exact) every sum is exact, so out, dv, the
+    residual ov and dq (or dk) must EQUAL the plain versions: one wrong
+    dropout bit (on probs or on dp), row sum or dS element fails."""
     from cldrd_tpu_torch.ops import attention as att
 
-    dev = ctx["dev"]
-    q = torch.zeros(b, length, HEADS, HEAD_DIM, dtype=torch.bfloat16,
-                    device=dev)
-    k = torch.randn(q.shape, generator=ctx["gen"], device=dev).to(q.dtype)
-    hot = (torch.arange(length, device=dev)[:, None] % HEAD_DIM
+    dev, bf16 = ctx["dev"], torch.bfloat16
+    shape = (b, length, HEADS, HEAD_DIM)
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % HEAD_DIM
            == torch.arange(HEAD_DIM, device=dev)[None, :])
-    v = hot[None, :, None, :].expand(q.shape).to(q.dtype).contiguous()
-    g = (2 * v).contiguous()
-    mask = torch.ones(b, length, dtype=torch.int32, device=dev)
-    route = att._kernel_route(q.dtype, length, HEAD_DIM, "train_fwd")
-    out, stats = att._launch_fwd(q, k, v, mask, seed, ATTN_P, None, True,
-                                 "train_fwd")
-    dv = att._launch_bwd(q, k, v, mask, seed, ATTN_P, None, stats, out,
-                         g)[2]
-    ref = att.train_fwd_plain(q, k, v, mask, seed, ATTN_P)
-    ref_dv = att.train_bwd_plain(q, k, v, mask, seed, ATTN_P, None, g)[2]
-    for name, got, want in (("out", out, ref), ("dv", dv, ref_dv)):
+    hot = hot[None, :, None, :].expand(shape).to(bf16).contiguous()
+    if form == "dq":
+        q, k = torch.zeros(shape, dtype=bf16, device=dev), hot
+    else:
+        q, k = hot, torch.zeros(shape, dtype=bf16, device=dev)
+        k[..., 0] = 1
+    g = torch.randint(-2, 3, shape, generator=ctx["gen"], device=dev).to(
+        bf16)
+    if segments:
+        mask, seg = _attn_segments(ctx, b, length)
+    else:
+        mask, seg = _padded_mask(ctx, b, length), None
+    route = att._kernel_route(bf16, length, HEAD_DIM, "train_fwd")
+    out, res = att._launch_fwd(q, k, hot, mask, seed, p, seg, True,
+                               "train_fwd")
+    dq, dk, dv = att._launch_bwd(q, k, hot, mask, seed, p, seg, res, g)
+    ref = att.train_fwd_plain(q, k, hot, mask, seed, p, seg)
+    rov = att.residual_ov_plain(q, k, hot, mask, seed, p, seg)
+    rq, rk, rv = att.train_bwd_plain(q, k, hot, mask, seed, p, seg, g)
+    pairs = (("out", out, ref), ("ov", res[1], rov), ("dv", dv, rv),
+             (form, dq, rq) if form == "dq" else (form, dk, rk))
+    for name, got, want in pairs:
+        if not want.abs().max() > 0:
+            raise AssertionError(f"attention exact {tag} {name}: the plain "
+                                 "version is all zeros (no test)")
         if not torch.equal(got, want):
             bad = (got != want).sum().item()
-            raise AssertionError(f"attention {route} {name}: {bad} elements "
-                                 "differ from the plain version on exact "
-                                 "inputs (dropout bits disagree)")
-    log(f"[kernels] attention {route} B={b} L={length} bf16 p={ATTN_P}, "
-        f"exact inputs: out and dv EQUAL to the plain versions "
-        f"({out.numel() + dv.numel()} elements)")
-    ctx["attn_exact_elements"] = out.numel() + dv.numel()
+            raise AssertionError(f"attention {route} exact {tag} {name}: "
+                                 f"{bad} of {got.numel()} elements differ "
+                                 "from the plain version")
+    n = sum(x.numel() for _, x, _ in pairs)
+    log(f"[kernels] attention {route} {tag} B={b} L={length} bf16 p={p}"
+        f"{', segments' if segments else ', padded rows'}, exact inputs "
+        f"({form} form): out, ov, dv and {form} EQUAL to the plain versions "
+        f"({n} elements)")
+    ctx["attn_exact_elements"] = ctx.get("attn_exact_elements", 0) + n
+
+
+def _attn_tight(ctx, tag, b, length, segments, seed=ATTN_SEED + 2):
+    """The sm90 route's dq and dk, element by element, against the plain
+    backward, on normal data with the main path's padding (or packed
+    segments), within ``sm90_bwd_bound``: one bf16 ulp of every dS term,
+    fp32 dots in another order, one ulp of the output. A wrong row sum,
+    swizzle row or chunk moves whole rows of dS and lies far outside
+    it."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    bf16 = torch.bfloat16
+    q, k, v, g, _, seg = _attn_inputs(ctx, b, length, bf16, segments)
+    mask = (seg > 0).int() if segments else _padded_mask(ctx, b, length)
+    route = att._kernel_route(bf16, length, HEAD_DIM, "train_fwd")
+    _, res = att._launch_fwd(q, k, v, mask, seed, ATTN_P, seg, True,
+                             "train_fwd")
+    dq, dk, _ = att._launch_bwd(q, k, v, mask, seed, ATTN_P, seg, res, g)
+    rq, rk, _ = att.train_bwd_plain(q, k, v, mask, seed, ATTN_P, seg, g)
+    bounds = att.sm90_bwd_bound(q, k, v, mask, seed, ATTN_P, seg, g, rq, rk)
+    worst = {}
+    for name, got, want, bound in (("dq", dq, rq, bounds[0]),
+                                   ("dk", dk, rk, bounds[1])):
+        err = (got.float() - want.float()).abs()
+        ratio = (err / bound.clamp_min(1e-30)).max().item()
+        over = (err > bound).sum().item()
+        if over:
+            raise AssertionError(f"attention {route} {tag} {name}: {over} "
+                                 "elements outside the per-element bound "
+                                 f"(max err/bound {ratio:.3g})")
+        worst[name] = ratio
+    log(f"[kernels] attention {route} {tag} B={b} L={length} bf16 p={ATTN_P}"
+        f"{', segments' if segments else ', padded rows'}: dq and dk within "
+        "the per-element bound of the plain backward "
+        f"(largest err/bound: dq {worst['dq']:.3g}, dk {worst['dk']:.3g})")
+    ctx.setdefault("attn_tight", {})[tag] = worst
+
+
+def _attn_model_calls_check(ctx):
+    """The model's own train-attention calls of one flat step at
+    DistilBERT-base width (random weights from --seed; ``_capture_calls``),
+    replayed through the sm90 kernels: out and dv within 2e-2 of the
+    largest magnitude of the plain versions, dq and dk element by element
+    within ``sm90_bwd_bound``. Random inputs have no common component
+    across keys; the model's rows do, and there dS cancels."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    work = os.path.join(WORK, "step_check")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    n_pass, n_q = 4096, 256
+    corpus = _write_corpus(work, n_pass, n_q, ctx["seed"])
+    files = _write_training_files(work, n_q, n_pass, ctx["seed"])
+    worst = {}
+    calls = _capture_calls(ctx, corpus, files["8"])
+    for c in calls:
+        q, k, v, mask, s_, p, seg = c["args"]
+        g = c["g"].contiguous()
+        tag = f"B={q.shape[0]} L={q.shape[1]}"
+        out, res = att._launch_fwd(q, k, v, mask, s_, p, seg, True,
+                                   "train_fwd")
+        dq, dk, dv = att._launch_bwd(q, k, v, mask, s_, p, seg, res, g)
+        ref = att.train_fwd_plain(q, k, v, mask, s_, p, seg)
+        rq, rk, rv = att.train_bwd_plain(q, k, v, mask, s_, p, seg, g)
+        bq, bk = att.sm90_bwd_bound(q, k, v, mask, s_, p, seg, g, rq, rk)
+        for name, got, want in (("out", out, ref), ("dv", dv, rv)):
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= 2e-2 * want.float().abs().max().item():
+                raise AssertionError(f"model call {tag} {name}: max abs err "
+                                     f"{err:.3g}")
+        for name, got, want, bound in (("dq", dq, rq, bq),
+                                       ("dk", dk, rk, bk)):
+            err = (got.float() - want.float()).abs()
+            ratio = (err / bound.clamp_min(1e-30)).max().item()
+            if (err > bound).any():
+                raise AssertionError(f"model call {tag} {name}: "
+                                     f"{int((err > bound).sum())} elements "
+                                     "outside the per-element bound (max "
+                                     f"err/bound {ratio:.3g})")
+            worst[name] = max(worst.get(name, 0.0), ratio)
+    log(f"[kernels] the model's {len(calls)} train-attention calls of one "
+        "flat step, replayed through the sm90 kernels: out and dv within "
+        "2e-2, dq and dk within the per-element bound of the plain "
+        f"versions (largest err/bound: dq {worst['dq']:.3g}, dk "
+        f"{worst['dk']:.3g})")
+    ctx["attn_model_calls"] = worst
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def _attn_determinism(ctx, b, length):
@@ -710,16 +859,16 @@ def _attn_determinism(ctx, b, length):
                                        False)
     runs = []
     for _ in range(2):
-        out, stats = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, None,
-                                     True, "train_fwd")
-        runs.append((out, *att._launch_bwd(q, k, v, mask, ATTN_SEED, ATTN_P,
-                                           None, stats, out, g)))
-    for name, x, y in zip(("out", "dq", "dk", "dv"), *runs):
+        out, res = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, None,
+                                   True, "train_fwd")
+        runs.append((out, *res, *att._launch_bwd(
+            q, k, v, mask, ATTN_SEED, ATTN_P, None, res, g)))
+    for name, x, y in zip(("out", "stats", "ov", "dq", "dk", "dv"), *runs):
         if not torch.equal(x, y):
             raise AssertionError(f"attention {name} differs between two "
                                  "launches on the same inputs")
     log(f"[kernels] attention B={b} L={length} bf16 p={ATTN_P}: two "
-        "launches give identical out, dq, dk and dv")
+        "launches give identical out, residual, dq, dk and dv")
 
 
 def _time_train_attention(ctx, tag, b, segments):
@@ -734,8 +883,8 @@ def _time_train_attention(ctx, tag, b, segments):
     rows = ctx.setdefault("timings", {})
     bf16, length = torch.bfloat16, TRAIN_LP
     q, k, v, g, mask, seg = _attn_inputs(ctx, b, length, bf16, segments)
-    out, stats = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
-                                 True, "train_fwd")
+    _, res = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg, True,
+                             "train_fwd")
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     amask = (mask != 0)[:, None, None, :]
@@ -749,32 +898,37 @@ def _time_train_attention(ctx, tag, b, segments):
         "fwd": lambda: att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
                                        True, "train_fwd"),
         "bwd": lambda: att._launch_bwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
-                                       stats, out, g),
+                                       res, g),
         "lib_fwd": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=amask, dropout_p=ATTN_P),
         "lib_bwd": lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), gt, retain_graph=True)}
     dev_ms = {key: device_ms(fn) for key, fn in calls.items()}
-    call_ms = {key: time_ms(fn, reps=20) for key, fn in calls.items()}
-    del lib_out, qt, kt, vt, amask, calls
+    # the tiled kernels of attention.cu on the same inputs, the earlier
+    # route of these launches, on the same yardstick
+    with _train_attention_route("tiled"):
+        _, res_t = att._launch_fwd(q, k, v, mask, ATTN_SEED, ATTN_P, seg,
+                                   True, "train_fwd")
+        dev_ms["tiled_fwd"] = device_ms(calls["fwd"])
+        dev_ms["tiled_bwd"] = device_ms(lambda: att._launch_bwd(
+            q, k, v, mask, ATTN_SEED, ATTN_P, seg, res_t, g))
+    del lib_out, qt, kt, vt, amask, calls, res_t
     n_int = 1 if seg is None else 2
     nb3, ops3 = _attn_bytes_ops(b, length, bf16, 4, 2, n_int)
     nb4, ops4 = _attn_bytes_ops(b, length, bf16, 7, 5, n_int)
     rows.setdefault("attention_train_fwd", {})[tag] = dict(
-        ms=dev_ms["fwd"], call_ms=call_ms["fwd"],
-        plain_ms=time_ms(lambda: att.train_fwd_plain(q, k, v, mask,
-                                                     ATTN_SEED, ATTN_P, seg),
-                         reps=1),
+        ms=dev_ms["fwd"], tiled_ms=dev_ms["tiled_fwd"],
+        plain_ms=device_ms(lambda: att.train_fwd_plain(
+            q, k, v, mask, ATTN_SEED, ATTN_P, seg), reps=1, warmup=1),
         bound=bound_ms(nb3, ops3, "bf16"), library_ms=dev_ms["lib_fwd"],
-        library_call_ms=call_ms["lib_fwd"], B=b, L=length)
+        B=b, L=length)
     rows.setdefault("attention_train_bwd", {})[tag] = dict(
-        ms=dev_ms["bwd"], call_ms=call_ms["bwd"],
-        plain_ms=time_ms(lambda: att.train_bwd_plain(q, k, v, mask,
-                                                     ATTN_SEED, ATTN_P, seg,
-                                                     g), reps=1),
+        ms=dev_ms["bwd"], tiled_ms=dev_ms["tiled_bwd"],
+        plain_ms=device_ms(lambda: att.train_bwd_plain(
+            q, k, v, mask, ATTN_SEED, ATTN_P, seg, g), reps=1, warmup=1),
         bound=bound_ms(nb4, ops4, "bf16"), library_ms=dev_ms["lib_bwd"],
-        library_call_ms=call_ms["lib_bwd"], B=b, L=length)
-    del q, k, v, g, out, stats
+        B=b, L=length)
+    del q, k, v, g, res
     torch.cuda.empty_cache()
 
 
@@ -800,22 +954,23 @@ def _time_attention(ctx):
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=amask)
     rows["attention_infer"] = {"encode": dict(
-        ms=device_ms(k5), call_ms=time_ms(k5, reps=20),
-        plain_ms=time_ms(lambda: att.attention_plain(q, k, v, mask), reps=3),
-        bound=bound_ms(nb5, ops5, "bf16"), library_ms=device_ms(lib),
-        library_call_ms=time_ms(lib, reps=20), B=b, L=length)}
+        ms=device_ms(k5),
+        plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
+                           reps=3, warmup=1),
+        bound=bound_ms(nb5, ops5, "bf16"), library_ms=device_ms(lib), B=b,
+        L=length)}
     for name, tag in (("attention_train_fwd", "train"),
                       ("attention_train_bwd", "train"),
                       ("attention_train_fwd", "packed"),
                       ("attention_train_bwd", "packed"),
                       ("attention_infer", "encode")):
         r = rows[name][tag]
-        log(f"[time] {name} {tag} B={r['B']} L={r['L']} bf16: kernel "
-            f"{r['ms']:.3f} ms on the device ({r['call_ms']:.3f} ms a call "
-            f"back to back), plain {r['plain_ms']:.3f} ms, "
-            f"scaled_dot_product_attention {r['library_ms']:.3f} ms "
-            f"({r['library_call_ms']:.3f} ms a call), bound "
-            f"{r['bound'][0]:.3f} ms ({r['bound'][1]})")
+        tiled = (f" (the tiled kernels of attention.cu: {r['tiled_ms']:.3f}"
+                 " ms)" if "tiled_ms" in r else "")
+        log(f"[time] {name} {tag} B={r['B']} L={r['L']} bf16, device ms: "
+            f"kernel {r['ms']:.3f}{tiled}, plain {r['plain_ms']:.3f}, "
+            f"scaled_dot_product_attention {r['library_ms']:.3f}, bound "
+            f"{r['bound'][0]:.3f} ({r['bound'][1]})")
 
 
 def _oracle(index, q_np, k):
@@ -1443,13 +1598,16 @@ def _check_served(tag, daemon, sent, answers):
     return sum(len(t) for t in sent)
 
 
-def _serve_store(ctx, work):
-    """A clustered 1,048,576 x 768 store (SERVE_CENTERS Gaussian blobs,
-    from --seed), written as the int8 flat store by write_embeddings.
-    Returns (its directory, the blob centres)."""
+def _serve_store(ctx, work, seed):
+    """A clustered 1,048,576 x 768 store (SERVE_CENTERS Gaussian blobs),
+    written as the int8 flat store by write_embeddings. It is drawn from
+    its own generator, seeded with ``seed``, so what earlier phases draw
+    does not change it. Returns (its directory, the blob centres)."""
     from cldrd_tpu_torch.index import write_embeddings
 
-    dev, gen = ctx["dev"], ctx["gen"]
+    dev = ctx["dev"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
     centers = torch.randn(SERVE_CENTERS, D, generator=gen, device=dev)
     which = torch.randint(0, SERVE_CENTERS, (SERVE_ROWS,), generator=gen,
                           device=dev)
@@ -1581,7 +1739,7 @@ def phase_serve(ctx):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t0 = time.perf_counter()
-    store, centers = _serve_store(ctx, work)
+    store, centers = _serve_store(ctx, work, ctx["seed"])
     t_store = time.perf_counter() - t0
     ivf_cli = ["--collection", ctx["corpus"]["collection"], "--out", store,
                "--ivf-only", "--ivf-nlist", str(SERVE_NLIST), "--ivf-nprobe",
@@ -1647,6 +1805,9 @@ def phase_serve(ctx):
         ref = np.concatenate([_oracle(flat, embs[r:r + 128], 10)[1]
                               for r in range(0, len(embs), 128)])
         recall = _recall_at_10(hits, ref)
+        # how alike the served queries are: near 1, they are one query
+        # and recall@10 reads that one query's luck on this store
+        spread = _spread(torch.from_numpy(embs[:2048]))
         # the served queries come from a text tower the store was not made
         # by; queries from the store's own distribution (a blob centre
         # plus the store's noise), as one encoder's queries and passages
@@ -1714,6 +1875,7 @@ def phase_serve(ctx):
         "latency_max_ms": float(took_ms[-1]),
         "latency_mean_ms": float(took_ms.mean()),
         "recall_at_10": recall, "recall_queries": len(embs),
+        "served_query_spread": spread,
         "recall_at_10_store_queries": recall_in,
         "pass_breakdown": breakdown,
         "healthz": health, "device_passes": len(timed),
@@ -1735,7 +1897,9 @@ def phase_serve(ctx):
         f"(daemon ring: p50 {health['latency_p50_ms']} ms, p99 "
         f"{health['latency_p99_ms']} ms); {SERVE_TIMED_REQUESTS} requests in "
         f"{len(timed)} device passes; recall@10 vs the exact oracle "
-        f"{recall:.4f} over {len(embs)} served queries (queries from the "
+        f"{recall:.4f} over {len(embs)} served queries (mean pairwise "
+        f"cosine of the first 2,048: {spread['mean_pairwise_cosine']!r}; "
+        f"queries from the "
         f"store's own distribution: {recall_in:.4f}); every answer EQUAL to "
         f"IVFIndex.search of its query embeddings; full probe agrees with "
         f"the oracle (integer queries EQUAL); /add /remove /save /reload "
@@ -1794,6 +1958,429 @@ def phase_serve(ctx):
     return own
 
 
+# ------------------------------------------- train-attention route study
+
+ROUTES = ("sm90", "tiled", "plain")
+
+
+@contextlib.contextmanager
+def _train_attention_route(route):
+    """Train attention on the card through one route: "sm90" (what
+    _kernel_route picks for bf16, head_dim 64, L <= 256), "tiled" (the
+    kernels of attention.cu, forced) or "plain" (the plain PyTorch
+    versions, on the card's tensors)."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    saved = att._kernel_route, att._route
+    if route == "tiled":
+        att._kernel_route = lambda dtype, length, head_dim, name: "tiled"
+    elif route == "plain":
+        att._route = lambda q: "plain"
+    elif route != "sm90":
+        raise ValueError(route)
+    try:
+        yield
+    finally:
+        att._kernel_route, att._route = saved
+
+
+def _route_model_config():
+    from cldrd_tpu_torch.models import DistilBertConfig
+
+    return DistilBertConfig()
+
+
+def _tower_diff(named, ref, got):
+    """For each tower: |got - ref| / |ref| over its gradients, their
+    cosine, and the parameter with the largest relative difference."""
+    out = {}
+    for tower in ("query_encoder", "passage_encoder"):
+        keys = [i for i, n in enumerate(named) if n.startswith(tower + ".")]
+        diff = sum(float((got[i] - ref[i]).double().square().sum())
+                   for i in keys)
+        norm = sum(float(ref[i].double().square().sum()) for i in keys)
+        norm_g = sum(float(got[i].double().square().sum()) for i in keys)
+        dot = sum(float((got[i].double() * ref[i].double()).sum())
+                  for i in keys)
+        worst = max(keys, key=lambda i: float(
+            (got[i] - ref[i]).norm() / ref[i].norm().clamp_min(1e-30)))
+        # the parameters that hold most of the difference
+        top = sorted(keys, key=lambda i: -float((got[i] - ref[i]).norm()))
+        out[tower] = {
+            "rel_diff": (diff / norm) ** 0.5,
+            "cosine": dot / (norm * norm_g) ** 0.5,
+            "worst_param": named[worst],
+            "worst_rel_diff": float((got[worst] - ref[worst]).norm()
+                                    / ref[worst].norm().clamp_min(1e-30)),
+            "top_diff": [(named[i], float((got[i] - ref[i]).norm()),
+                          float(ref[i].norm())) for i in top[:6]]}
+    return out
+
+
+def _step_setup(ctx, corpus, train_file, n_batches=1):
+    """A Trainer at the train phase's shape with random weights from
+    --seed, its loss, and the first ``n_batches`` flat batches of
+    ``train_file`` on the card."""
+    from cldrd_tpu_torch.data import HashTokenizer, NwayDataset
+    from cldrd_tpu_torch.train import TrainConfig, Trainer, make_loss_fn
+    from cldrd_tpu_torch.train.trainer import batch_to_device
+
+    dev, seed = ctx["dev"], ctx["seed"]
+    cfg = TrainConfig(max_query_len=TRAIN_LQ, max_passage_len=TRAIN_LP,
+                      batch_size=TRAIN_BZ, label_mode="8", seed=seed,
+                      run_folder=os.path.join(WORK, "grads"))
+    model_cfg = _route_model_config()
+    trainer = Trainer(cfg, model_cfg, device=dev)
+    trainer.model.reset_parameters(seed=seed)
+    trainer.model.to(dev).train()
+    data = NwayDataset.create_from_files(
+        corpus["queries"], corpus["collection"], train_file,
+        HashTokenizer(vocab_size=model_cfg.vocab_size), TRAIN_LQ, TRAIN_LP,
+        "8")
+    batches = [batch_to_device(b, dev) for b, _ in
+               zip(data.batches(TRAIN_BZ, seed=seed), range(n_batches))]
+    return trainer.model, make_loss_fn(cfg), batches
+
+
+def _step_loss(model, loss_fn, batch, ctx):
+    from cldrd_tpu_torch.models import DropoutRNG
+
+    logits = model(batch["query"], batch.get("nway_passages"),
+                   batch.get("packed_passages"),
+                   rng=DropoutRNG(ctx["seed"], 0, ctx["dev"]))
+    return loss_fn(logits, batch["labels"], batch["teacher_scores"]), logits
+
+
+def _route_grads(ctx, corpus, train_file, n_batches=4):
+    """One flat step's gradients (same weights, batch and dropout stream)
+    through each route, each route's against the plain route's, for each
+    of ``n_batches`` batches: how far kernels that agree with the plain
+    versions call by call move a step of this model."""
+    model, loss_fn, batches = _step_setup(ctx, corpus, train_file,
+                                          n_batches)
+    named, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if p.requires_grad])
+    res = []
+    for batch in batches:
+        grads, losses, logits = {}, {}, {}
+        for route in ROUTES:
+            with _train_attention_route(route):
+                loss, out = _step_loss(model, loss_fn, batch, ctx)
+                g = torch.autograd.grad(loss, params, allow_unused=True)
+            grads[route] = [torch.zeros_like(p, dtype=torch.float32)
+                            if x is None else x.float()
+                            for p, x in zip(params, g)]
+            losses[route] = float(loss.detach())
+            logits[route] = out.detach().float()
+        res.append({
+            "loss": losses,
+            "logits_rel_diff_vs_plain": {
+                r: float((logits[r] - logits["plain"]).norm()
+                         / logits["plain"].norm()) for r in ("sm90", "tiled")},
+            "vs_plain": {r: _tower_diff(named, grads["plain"], grads[r])
+                         for r in ("sm90", "tiled")},
+            "sm90_vs_tiled": _tower_diff(named, grads["tiled"],
+                                         grads["sm90"])})
+        del grads
+    del model, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _err_stats(got, ref):
+    d, r = got.detach().double() - ref.double(), ref.double()
+    rms = r.square().mean().sqrt().clamp_min(1e-300)
+    return {"rms": float(d.square().mean().sqrt() / rms),
+            "along": float((d * r).mean() / rms ** 2),
+            "max": float(d.abs().max() / r.abs().max().clamp_min(1e-300))}
+
+
+def _capture_calls(ctx, corpus, train_file):
+    """The model's own train-attention calls of one flat step (random
+    weights from --seed, the sm90 route): each call's arguments and the
+    upstream gradient its output received."""
+    from cldrd_tpu_torch.models import distilbert
+
+    model, loss_fn, (batch,) = _step_setup(ctx, corpus, train_file)
+    calls, orig = [], distilbert.flash_attention_train
+
+    def record(q, k, v, mask, seed, dropout_p=0.0, segment_ids=None):
+        out = orig(q, k, v, mask, seed, dropout_p, segment_ids)
+        c = {"args": (q.detach(), k.detach(), v.detach(), mask, seed,
+                      dropout_p, segment_ids)}
+        out.register_hook(lambda gr, c=c: c.__setitem__("g", gr.detach()))
+        calls.append(c)
+        return out
+
+    distilbert.flash_attention_train = record
+    try:
+        _step_loss(model, loss_fn, batch, ctx)[0].backward()
+    finally:
+        distilbert.flash_attention_train = orig
+    del model, batch
+    return calls
+
+
+def _route_captured(ctx, corpus, train_file):
+    """Each of the model's calls (``_capture_calls``) replayed through the
+    sm90 and tiled kernels against the plain versions: per call, each
+    route's error statistics (RMS and component along plain, over the
+    RMS of plain; max over the largest magnitude) for out, dq, dk, dv."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    res = []
+    for c in _capture_calls(ctx, corpus, train_file):
+        q, k, v, mask, s_, p, seg = c["args"]
+        g = c["g"].contiguous()
+        want = [att.train_fwd_plain(q, k, v, mask, s_, p, seg),
+                *att.train_bwd_plain(q, k, v, mask, s_, p, seg, g)]
+        row = {"B": q.shape[0], "L": q.shape[1],
+               "real_keys": float(mask.float().sum(1).mean())}
+        for route in ("sm90", "tiled"):
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            with _train_attention_route(route):
+                out = att.flash_attention_train(qs, ks, vs, mask, s_, p, seg)
+                out.backward(g)
+            row[route] = {n: _err_stats(x, w) for n, x, w in zip(
+                ("out", "dq", "dk", "dv"),
+                (out, qs.grad, ks.grad, vs.grad), want)}
+        res.append(row)
+        log(f"[routes] model call B={row['B']} L={row['L']} (real keys "
+            f"{row['real_keys']:.1f}): " + "; ".join(
+                f"{r} " + ", ".join(
+                    f"{n} rms {e['rms']:.2e} along {e['along']:+.1e}"
+                    for n, e in row[r].items()) for r in ("sm90", "tiled")))
+    torch.cuda.empty_cache()
+    return res
+
+
+def _route_kernel_errors(ctx):
+    """Each kernel route's error against the plain versions at the passage
+    and query shapes, with the main path's padding, p = 0.1: the RMS of
+    (route - plain) and its mean, over the RMS of plain, and its component
+    along plain (a scale bias shows there; rounding averages out)."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    bf16, res = torch.bfloat16, {}
+    for tag, b, length in (("passage", TRAIN_BZ * NWAY, TRAIN_LP),
+                           ("query", TRAIN_BZ, TRAIN_LQ)):
+        q, k, v, g, _, _ = _attn_inputs(ctx, b, length, bf16, False)
+        mask = _padded_mask(ctx, b, length)
+        want = [att.train_fwd_plain(q, k, v, mask, ATTN_SEED, ATTN_P),
+                *att.train_bwd_plain(q, k, v, mask, ATTN_SEED, ATTN_P, None,
+                                     g)]
+        for route in ("sm90", "tiled"):
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            with _train_attention_route(route):
+                out = att.flash_attention_train(qs, ks, vs, mask, ATTN_SEED,
+                                                ATTN_P)
+                out.backward(g)
+            for name, got, ref in zip(("out", "dq", "dk", "dv"),
+                                      (out, qs.grad, ks.grad, vs.grad),
+                                      want):
+                d, r = got.detach().double() - ref.double(), ref.double()
+                rms = r.square().mean().sqrt()
+                res.setdefault(tag, {}).setdefault(route, {})[name] = {
+                    "rms": float(d.square().mean().sqrt() / rms),
+                    "mean": float(d.mean() / rms),
+                    "along": float((d * r).mean() / rms ** 2)}
+        log(f"[routes] kernel error vs plain, {tag} B={b} L={length}: "
+            + "; ".join(f"{route} " + ", ".join(
+                f"{n} rms {e['rms']:.3e} along {e['along']:+.3e}"
+                for n, e in errs.items())
+                for route, errs in res[tag].items()))
+        del q, k, v, g, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def _query_embs(ckpt, texts, dev, seed):
+    """fp32 query embeddings of ``texts`` from a checkpoint (or, with
+    ``ckpt`` None, the random init from ``seed``), as the daemon encodes
+    them: hash tokenizer, max length 30, bf16, batches of 128."""
+    from cldrd_tpu_torch.cli.common import build_tokenizer, load_dual_encoder
+    from cldrd_tpu_torch.index.builder import make_encode_fn
+
+    cfg = _route_model_config()
+    model = load_dual_encoder(ckpt, cfg, False, False, torch.bfloat16, dev,
+                              seed=seed)
+    encode = make_encode_fn(model, "query_embs")
+    tok = build_tokenizer("hash", vocab_size=cfg.vocab_size)
+    embs = torch.cat([encode(tok(texts[s:s + 128], TRAIN_LQ))
+                      for s in range(0, len(texts), 128)])
+    del model
+    return embs
+
+
+def _spread(e):
+    """Mean pairwise cosine of the rows (diagonal left out), mean norm, and
+    the share of the squared norm along the mean direction."""
+    n = e.shape[0]
+    u = e / e.norm(dim=1, keepdim=True)
+    cos = (u @ u.T).sum().item()
+    mean = e.mean(0)
+    along = ((e @ (mean / mean.norm())) ** 2).sum() / (e ** 2).sum()
+    return {"mean_pairwise_cosine": (cos - n) / (n * (n - 1)),
+            "mean_norm": e.norm(dim=1).mean().item(),
+            "share_along_mean": along.item()}
+
+
+def phase_routes(ctx):
+    """The train phase's curriculum (3 x 4 flat steps, same data and seed)
+    through each train-attention route, to tell whether the route moves
+    training: one step's gradients against the plain route's; each step's
+    loss and grad norm; the trained query tower's embedding spread and
+    recall@10 at nprobe 32 on the serve phase's clustered store; and the
+    flat and packed step times of the sm90 and tiled routes, alternated
+    (tiled, sm90, sm90, tiled) in one process."""
+    from cldrd_tpu_torch.cli import curriculum as cli_curriculum
+    from cldrd_tpu_torch.cli import index as cli_index
+    from cldrd_tpu_torch.cli import train as cli_train
+    from cldrd_tpu_torch.index import IVFIndex, load_index
+    from cldrd_tpu_torch.train import latest_checkpoint
+    from cldrd_tpu_torch.train.trainer import Trainer
+
+    dev, seed = ctx["dev"], ctx["seed"]
+    work = os.path.join(WORK, "routes")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    corpus = _write_corpus(work, N_PIPELINE, N_QUERIES, seed)
+    files = _write_training_files(work, N_QUERIES, N_PIPELINE, seed)
+    base = os.path.join(work, "train.yaml")
+    with open(base, "w") as f:
+        f.write(f"max_query_len: {TRAIN_LQ}\nmax_passage_len: {TRAIN_LP}\n"
+                "warmup_steps: 2\nlogging_steps: 1\nevaluate_steps: 1000\n"
+                f"compute_dtype: \"bfloat16\"\nseed: {seed}\n")
+    res = {"kernel_errors": _route_kernel_errors(ctx),
+           "captured": _route_captured(ctx, corpus, files["8"]),
+           "grads": _route_grads(ctx, corpus, files["8"])}
+    for i, step in enumerate(res["grads"]):
+        log(f"[routes] batch {i}: one step's logits vs plain (relative) "
+            f"{step['logits_rel_diff_vs_plain']}; losses {step['loss']}")
+        for r, d in step["vs_plain"].items():
+            log(f"[routes] batch {i}: gradients, {r} vs plain: " + "; ".join(
+                f"{t} rel diff {v['rel_diff']:.3e}, cosine {v['cosine']:.6f}"
+                for t, v in d.items()))
+    for r, d in res["grads"][0]["vs_plain"].items():
+        for t, v in d.items():
+            log(f"[routes] batch 0: {r} {t} largest differences (|diff|, "
+                "|plain|): " + ", ".join(f"{n} {a:.3e} {b:.3e}"
+                                         for n, a, b in v["top_diff"]))
+    runs = os.path.join(work, "runs")
+    common = ["--config", base, "--tokenizer", "hash", "--device", "cuda",
+              "--dropout", "0.1", "--attention-dropout", "0.1",
+              "--batch-size", str(TRAIN_BZ)]
+    records = []
+    check = Trainer._check_finite
+
+    def record(self, m, step):
+        records.append({"run": self.cfg.experiment_name, "step": step,
+                        "loss": m["loss"], "grad_norm": m["grad_norm"],
+                        "t": time.perf_counter()})
+        return check(self, m, step)
+
+    Trainer._check_finite = record
+    ckpts, traj, flat_ms, packed_ms = {}, {}, {}, {}
+    try:
+        for i, route in enumerate(("tiled", "sm90", "plain", "sm90",
+                                   "tiled")):
+            folder = os.path.join(runs, f"{i}_{route}")
+            n0 = len(records)
+            with _train_attention_route(route):
+                _call_cli(cli_curriculum.main, [
+                    "--queries", corpus["queries"],
+                    "--passages", corpus["collection"],
+                    "--training-paths", files["8"], files["9"], files["10"],
+                    "--epochs", "1", "1", "1", "--run-folder", folder,
+                    *common])
+            mine = records[n0:]
+            run = [(r["loss"], r["grad_norm"]) for r in mine]
+            if route in traj and traj[route] != run:
+                raise AssertionError(f"two {route} curricula from one seed "
+                                     "gave different losses")
+            traj[route] = run
+            ckpts.setdefault(route, latest_checkpoint(
+                os.path.join(folder, "curriculum_iter3")))
+            flat_ms.setdefault(route, []).extend(
+                x * 1e3 for x in _step_times(
+                    mine, [f"curriculum_iter{j}" for j in (1, 2, 3)]))
+        train = ["--queries-path", corpus["queries"],
+                 "--passages-path", corpus["collection"],
+                 "--training-path", files["8"], "--label-mode", "8",
+                 "--num-train-epochs", "2", "--learning-rate", "7e-6",
+                 "--pack-passages", "--evaluate-steps", "1000", *common]
+        for i, route in enumerate(("tiled", "sm90", "sm90", "tiled")):
+            name = f"packed_{i}_{route}"
+            n0 = len(records)
+            with _train_attention_route(route):
+                _call_cli(cli_train.main, [
+                    *train, "--run-folder", os.path.join(runs, name),
+                    "--experiment-name", name])
+            packed_ms.setdefault(route, []).extend(
+                x * 1e3 for x in _step_times(records[n0:], [name]))
+    finally:
+        Trainer._check_finite = check
+    res["trajectory"] = {r: {"loss": [x for x, _ in v],
+                             "grad_norm": [y for _, y in v]}
+                         for r, v in traj.items()}
+    for r in ("sm90", "tiled"):
+        d = [abs(a - b) for (a, _), (b, _) in zip(traj[r], traj["plain"])]
+        res["trajectory"][r]["max_loss_diff_vs_plain"] = max(d)
+    res["step_ms"] = {
+        kind: {r: {"median": float(np.median(v)), "all": v}
+               for r, v in ms.items()}
+        for kind, ms in (("flat", flat_ms), ("packed", packed_ms))}
+    for r, v in res["trajectory"].items():
+        log(f"[routes] {r} curriculum: losses "
+            + " ".join(f"{x:.4f}" for x in v["loss"]) + "; grad norms "
+            + " ".join(f"{x:.3f}" for x in v["grad_norm"]))
+    for kind, by in res["step_ms"].items():
+        log(f"[routes] {kind} step (median ms): " + ", ".join(
+            f"{r} {v['median']:.2f} over {len(v['all'])} steps"
+            for r, v in by.items()))
+
+    # the trained query towers on the serve phase's store
+    with open(corpus["queries"]) as f:
+        texts = [line.rstrip("\n").split("\t", 1)[1] for line in f]
+    embs = {"init": _query_embs(None, texts, dev, seed)}
+    for r in ROUTES:
+        embs[r] = _query_embs(ckpts[r], texts, dev, seed)
+    res["queries"] = {name: _spread(e) for name, e in embs.items()}
+    # recall@10 at nprobe 32 on the serve phase's store (seed --seed) and
+    # on two more drawn the same way
+    for k in range(3):
+        store, _ = _serve_store(ctx, work, seed + k)
+        _call_cli(cli_index.main, [
+            "--collection", corpus["collection"], "--out", store,
+            "--ivf-only", "--ivf-nlist", str(SERVE_NLIST), "--ivf-nprobe",
+            str(SERVE_NPROBE), "--device", "cuda"])
+        ivf = IVFIndex.load(os.path.join(store, "ivf"), dtype=torch.int8,
+                            device=dev)
+        ivf.nprobe = SERVE_NPROBE
+        flat = load_index(store, dtype=torch.int8, device=dev)
+        for name, e in embs.items():
+            q = e.cpu().numpy()
+            ref = np.concatenate([_oracle(flat, q[r:r + 128], 10)[1]
+                                  for r in range(0, len(q), 128)])
+            hits = np.concatenate([ivf.search(q[r:r + 128], 10)[1]
+                                   for r in range(0, len(q), 128)])
+            res["queries"][name].setdefault("recall_at_10", []).append(
+                _recall_at_10(hits, ref))
+        del flat, ivf
+        shutil.rmtree(store)
+    for name in embs:
+        log(f"[routes] query tower {name}: " + ", ".join(
+            f"{k} {v}" for k, v in res["queries"][name].items()))
+    for a, b in (("sm90", "plain"), ("tiled", "plain"), ("sm90", "tiled")):
+        cos = torch.nn.functional.cosine_similarity(embs[a], embs[b], dim=1)
+        res["queries"][f"{a}_vs_{b}_cosine"] = cos.mean().item()
+        log(f"[routes] query embeddings {a} vs {b}: mean cosine "
+            f"{cos.mean().item():.6f}, min {cos.min().item():.6f}")
+    del embs
+    ctx["routes"] = res
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def smi_line():
     try:
         out = subprocess.run(
@@ -1815,7 +2402,7 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
         "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
         "shape": tag,
     }
-    for key in ("matmul_ms", "library_note", "call_ms", "library_call_ms"):
+    for key in ("matmul_ms", "library_note"):
         if key in t:
             rec[key] = t[key]
     return rec
@@ -1872,6 +2459,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compare-routes", metavar="OUT_JSON", default=None,
+                   help="instead of the smoke run: build the kernels, run "
+                        "the train-attention route study (phase_routes) "
+                        "and write its results to OUT_JSON")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1893,6 +2484,12 @@ def main(argv=None) -> int:
         return out
 
     run("build", phase_build)
+    if args.compare_routes:
+        run("routes", phase_routes)
+        with open(args.compare_routes, "w") as f:
+            json.dump(ctx["routes"], f, indent=1)
+        log(smi_line())
+        return 0
     run("kernels", phase_kernels)
     ctx["stores"] = run("prepare", prepare_search)
     # each path of the port runs in its own counted window: the counts are
@@ -1927,6 +2524,8 @@ def main(argv=None) -> int:
     log("results " + json.dumps({
         k: ctx.get(k) for k in ("timings", "search_layer_ms", "search",
                                 "train", "pipeline", "serve", "k1_err",
+                                "attn_tight", "attn_exact_elements",
+                                "attn_model_calls",
                                 "k2_err", "k6_err", "attn_err_fp32",
                                 "attn_err_bf16",
                                 "k1_checked", "build_s")}))

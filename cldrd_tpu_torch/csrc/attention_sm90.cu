@@ -20,16 +20,23 @@
 // - head_dim is 64, so scale = 2^-3 and (q * scale) . k = scale * (q . k)
 //   exactly: the kernels multiply the fp32 product by scale instead of
 //   keeping a scaled copy of q.
-// - rowsum is taken as rowsum(g * out) with out the forward's bf16 output
-//   (FlashAttention-2's identity), not as rowsum(dp * probs) as in the
-//   reference: equal in exact arithmetic, different by the bf16 rounding
-//   of out and of probs_d. It lets a key tile's S and dP die as soon as
-//   its dS is formed, which is what makes the backward fit in registers.
+// - rowsum(dp * probs) is taken as inv32 * (g . ov), with
+//   ov = sum_k keep * probs * v in fp32, a second output of the forward
+//   (one more P.V product, with the kept probs unscaled: exact in bf16).
+//   The two are one sum in two orders, so they differ only by fp32
+//   rounding, as the reference's own order does. A key tile's S and dP
+//   then die as soon as its dS is formed, which is what makes the
+//   backward fit in registers. (FlashAttention-2 takes rowsum(g * out)
+//   with out the bf16 output; here that put about one bf16 ulp of noise
+//   into every dq and dk element: the rounding of out and of
+//   probs * inv. ov carries neither.)
 //
 // Bound on an H100 SXM at the passage tower's shape (B=240, H=12, L=256,
 // D=64, bf16): the forward moves 377 MB (0.113 ms at 3.35 TB/s) against
 // 48.3 GFLOP (0.049 ms at 989 TFLOP/s), the backward 661 MB (0.197 ms)
-// against 120.8 GFLOP (0.122 ms): bytes bind both. Per element of the
+// against 120.8 GFLOP (0.122 ms): bytes bind both. (The function's own
+// bytes; ov adds 189 MB written by the forward and read by the backward,
+// the price of an exact row sum.) Per element of the
 // [L, L] score matrix (189M per launch) each direction also computes one
 // exp, one division and, with dropout, one murmur3 hash (3 multiplies,
 // 3 shifts, 3 xors); at the H100's integer rate the hash alone costs
@@ -49,7 +56,7 @@
 // 2. Each operand read once. One forward block owns (b, h, 64-query
 //    chunk) and holds the row's K and V (64 KB) in shared memory. One
 //    backward block owns a whole (b, h) row: K and V stay resident, Q, G
-//    and out stream through a two-stage ring of 64-row chunks. Each of
+//    and ov stream through a two-stage ring of 64-row chunks. Each of
 //    the two warpgroups owns two 64-key tiles; dQ of a chunk is finished
 //    inside the block (all keys are there) as the sum of the two
 //    warpgroups' partials and written once; dK and dV accumulate in
@@ -73,7 +80,7 @@
 // Shapes: the forward is one warpgroup (128 threads) per block, ~75 KB of
 // shared memory; the backward two warpgroups (256 threads, up to 255
 // registers each: dK and dV of two 64-key tiles are 128 fp32 registers a
-// thread, S and dP of one tile 64 more), ~195 KB, one block per SM.
+// thread, S and dP of one tile 64 more), ~211 KB, one block per SM.
 // Rows shorter than 193 do the work of 256 (only the query tower's
 // L=30 launches, the smallest of the path).
 #include <cuda_bf16.h>
@@ -145,6 +152,22 @@ __device__ __forceinline__ void load_tile(const bf16* __restrict__ src,
     const bf16* g =
         src + (((long long)b * L + (ok ? l : 0)) * H + h) * D + c * 8;
     cp_async16(dst + swz(r, c), g, ok);
+  }
+}
+
+// the same for a [B, L, H, 64] fp32 tensor into a plain tile of 256-byte
+// rows (read by the threads, not by wgmma)
+__device__ __forceinline__ void load_tile_f32(const float* __restrict__ src,
+                                              int b, int h, int L, int H,
+                                              int l0, uint32_t dst, int tid,
+                                              int nthr) {
+  for (int i = tid; i < TILE * 16; i += nthr) {
+    const int r = i >> 4, c = i & 15;
+    const int l = l0 + r;
+    const bool ok = l < L;
+    const float* g =
+        src + (((long long)b * L + (ok ? l : 0)) * H + h) * D + c * 4;
+    cp_async16(dst + r * 256 + c * 16, g, ok);
   }
 }
 
@@ -267,8 +290,9 @@ __global__ void __launch_bounds__(FWD_THREADS)
 attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ mask,
                      const int* __restrict__ seg, bf16* __restrict__ out,
-                     float* __restrict__ stats, int L, int H, uint32_t seed,
-                     float p, float inv, float scale) {
+                     float* __restrict__ stats, float* __restrict__ ov,
+                     int L, int H, uint32_t seed, float p, float inv,
+                     float scale) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
@@ -353,8 +377,13 @@ attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const uint32_t thr = keep_threshold(p);
 
-  // probs rounded to bf16, dropout, packed as P.V's A fragments: step kk
-  // of tile j takes columns 16kk.. (accumulator blocks 2kk and 2kk + 1)
+  // probs rounded to bf16, packed as P.V's A fragments: step kk of tile
+  // j takes columns 16kk.. (accumulator blocks 2kk and 2kk + 1). With
+  // dropout these are first the kept probs unscaled (keep ? probs : 0,
+  // exact in bf16), for ov = pa.V; then each is scaled by inv in place,
+  // bf16(probs * inv) as the reference rounds it, for out = pa.V. One set
+  // of fragments and one accumulator live at a time keeps the registers
+  // under 255 without spills.
   uint32_t pa[MAXT][16];
 #pragma unroll
   for (int j = 0; j < MAXT; ++j) {
@@ -369,9 +398,9 @@ attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const uint32_t idx =
             drop_index(b, h, H, L, (uint32_t)qrow[x],
                        (uint32_t)(j * TILE + acc_col(i, lane)));
-        pr = __floats2bfloat162_rn(
-            hash_keep_t(idx, seed, thr) ? pf.x * inv : 0.f,
-            hash_keep_t(idx + 1u, seed, thr) ? pf.y * inv : 0.f);
+        pr = __floats2bfloat162_rn(hash_keep_t(idx, seed, thr) ? pf.x : 0.f,
+                                   hash_keep_t(idx + 1u, seed, thr) ? pf.y
+                                                                    : 0.f);
       }
       // fragment register (kk = nb / 2): a0 rows r, cols 0-1; a1 rows
       // r + 8; a2 / a3 the same at cols 8-9
@@ -383,6 +412,7 @@ attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   fence_async_smem();
   __syncthreads();
   float o[32];
+  // ov = the kept probs . V (without dropout, out's own product)
   wg_fence();
 #pragma unroll
   for (int j = 0; j < MAXT; ++j) {
@@ -396,6 +426,42 @@ attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   fence_regs(o);
 #pragma unroll
   for (int j = 0; j < MAXT; ++j) fence_regs(pa[j]);
+  if (ov != nullptr) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (qrow[x] >= L) continue;
+      float* dst = ov + (((long long)b * L + qrow[x]) * H + h) * D;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+        *reinterpret_cast<float2*>(dst + nb * 8 + 2 * (lane & 3)) =
+            make_float2(o[nb * 4 + 2 * x], o[nb * 4 + 2 * x + 1]);
+    }
+  }
+  if (DROP) {
+    // probs_d = bf16(probs * inv) for the kept ones (0 stays 0)
+#pragma unroll
+    for (int j = 0; j < MAXT; ++j) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float2 pf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&pa[j][r]));
+        pa[j][r] = as_u32(__floats2bfloat162_rn(pf.x * inv, pf.y * inv));
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < MAXT; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(o, &pa[j][kk * 4], sdesc(sV + j * TB + kk * KSTEP_MN),
+               (j | kk) != 0);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(o);
+#pragma unroll
+    for (int j = 0; j < MAXT; ++j) fence_regs(pa[j]);
+  }
 
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
@@ -418,21 +484,22 @@ attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // --------------------------------------------------------------- backward
 
 constexpr int BWD_THREADS = 256;  // two warpgroups
-// K, V (4 tiles each), Q, G, out (2 stages each), dS, P_d (4 tiles each),
-// and the second warpgroup's partial dQ ([64 x 64] fp32, two tiles' room)
-constexpr int BWD_TILES = 2 * MAXT + 3 * 2 + 2 * MAXT + 2;
+// K, V (4 tiles each), Q, G (2 stages each), ov (2 stages of [64 x 64]
+// fp32, two tiles' room each), dS, P_d (4 tiles each), and the second
+// warpgroup's partial dQ ([64 x 64] fp32, two tiles' room)
+constexpr int BWD_TILES = 2 * MAXT + 2 * 2 + 2 * 2 + 2 * MAXT + 2;
 constexpr int BWD_SMEM = BWD_TILES * TB + 2 * MAXL * 4 + TILE * 4 + 1024;
 
-// Q, G and out of query chunk c into ring stage c % 2
+// Q, G and ov of query chunk c into ring stage c % 2
 __device__ __forceinline__ void load_chunk(const bf16* q, const bf16* g,
-                                           const bf16* o, int b, int h,
+                                           const float* ov, int b, int h,
                                            int L, int H, int c, uint32_t sQ,
                                            uint32_t sG, uint32_t sO,
                                            int tid) {
   const uint32_t off = (c & 1) * TB;
   load_tile(q, b, h, L, H, c * TILE, sQ + off, tid, BWD_THREADS);
   load_tile(g, b, h, L, H, c * TILE, sG + off, tid, BWD_THREADS);
-  load_tile(o, b, h, L, H, c * TILE, sO + off, tid, BWD_THREADS);
+  load_tile_f32(ov, b, h, L, H, c * TILE, sO + 2 * off, tid, BWD_THREADS);
 }
 
 // One block owns a (b, h) row. Warpgroup w owns key tiles w and w + 2
@@ -445,7 +512,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ mask,
                      const int* __restrict__ seg, const bf16* __restrict__ g,
-                     const bf16* __restrict__ o,
+                     const float* __restrict__ ov,
                      const float* __restrict__ stats, bf16* __restrict__ dq,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
                      int H, uint32_t seed, float p, float inv, float inv32,
@@ -456,7 +523,7 @@ attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* sm = smem_raw + (base - raw);
   const uint32_t sK = base, sV = sK + MAXT * TB;
   const uint32_t sQ = sV + MAXT * TB, sG = sQ + 2 * TB, sO = sG + 2 * TB;
-  const uint32_t sDS = sO + 2 * TB, sPD = sDS + MAXT * TB;
+  const uint32_t sDS = sO + 4 * TB, sPD = sDS + MAXT * TB;
   unsigned char* pDS = sm + (sDS - base);
   unsigned char* pPD = sm + (sPD - base);
   const unsigned char* pG = sm + (sG - base);
@@ -478,9 +545,9 @@ attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile(v, b, h, L, H, j * TILE, sV + j * TB, tid, BWD_THREADS);
   }
   cp_async_commit();
-  load_chunk(q, g, o, b, h, L, H, 0, sQ, sG, sO, tid);
+  load_chunk(q, g, ov, b, h, L, H, 0, sQ, sG, sO, tid);
   cp_async_commit();
-  if (nqc > 1) load_chunk(q, g, o, b, h, L, H, 1, sQ, sG, sO, tid);
+  if (nqc > 1) load_chunk(q, g, ov, b, h, L, H, 1, sQ, sG, sO, tid);
   cp_async_commit();
   load_key_meta<SEG>(mask, seg, b, L, MAXL, kmask, kseg, tid, BWD_THREADS);
 
@@ -497,33 +564,32 @@ attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_async_smem();
     __syncthreads();
 
-    // rowsum(g * out) of the chunk's 64 rows: four threads a row, 16
-    // columns each, summed in a fixed order
+    // rowsum = inv32 * (g . ov) of the chunk's 64 rows: four threads a
+    // row, 16 columns each, summed in a fixed order
     {
       const int r = tid >> 2, part = tid & 3;
       float acc = 0.f;
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
-        const int chunk = part * 2 + h2;
+        const int chunk = part * 2 + h2;  // columns 8 * chunk ..
         const uint4 gv =
             *reinterpret_cast<const uint4*>(pG + st + swz(r, chunk));
-        const uint4 ov =
-            *reinterpret_cast<const uint4*>(pO + st + swz(r, chunk));
         const __nv_bfloat162* g2 =
             reinterpret_cast<const __nv_bfloat162*>(&gv);
-        const __nv_bfloat162* o2 =
-            reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const float4* o4 = reinterpret_cast<const float4*>(
+            pO + 2 * st + r * 256 + chunk * 32);
+        const float4 oa = o4[0], ob = o4[1];
+        const float of[8] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 gf = __bfloat1622float2(g2[e]);
-          const float2 of = __bfloat1622float2(o2[e]);
-          acc = fmaf(gf.x, of.x, acc);
-          acc = fmaf(gf.y, of.y, acc);
+          acc = fmaf(gf.x, of[2 * e], acc);
+          acc = fmaf(gf.y, of[2 * e + 1], acc);
         }
       }
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (part == 0) rsum[r] = acc;
+      if (part == 0) rsum[r] = acc * inv32;
     }
     __syncthreads();
 
@@ -585,8 +651,10 @@ attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bool k1 = hash_keep_t(idx + 1u, seed, thr);
           pd = __floats2bfloat162_rn(k0 ? pf.x * inv : 0.f,
                                      k1 ? pf.y * inv : 0.f);
-          dp0 = k0 ? dp0 * inv32 : 0.f;
-          dp1 = k1 ? dp1 * inv32 : 0.f;
+          // rounded on its own, as the plain version rounds it (an FMA
+          // with the subtraction below would skip that rounding)
+          dp0 = k0 ? __fmul_rn(dp0, inv32) : 0.f;
+          dp1 = k1 ? __fmul_rn(dp1, inv32) : 0.f;
         }
         const __nv_bfloat162 ds = __floats2bfloat162_rn(
             pf.x * (dp0 - dr[x]), pf.y * (dp1 - dr[x]));
@@ -637,7 +705,8 @@ attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 32; ++i) xdq[i * 128 + wt] = dqa[i];
     }
     __syncthreads();  // stage c % 2 is free; the partial dQ is there
-    if (c + 2 < nqc) load_chunk(q, g, o, b, h, L, H, c + 2, sQ, sG, sO, tid);
+    if (c + 2 < nqc)
+      load_chunk(q, g, ov, b, h, L, H, c + 2, sQ, sG, sO, tid);
     cp_async_commit();
     if (wg == 0) {
 #pragma unroll
@@ -743,8 +812,8 @@ attn_sm90_mma_check_kernel(const bf16* __restrict__ a,
 template <bool DROP, bool SEG>
 struct Launch {
   static int fwd(const void* q, const void* k, const void* v, const int* mask,
-                 const int* seg, void* out, float* stats, int B, int L, int H,
-                 uint32_t seed, float p, float inv, float scale,
+                 const int* seg, void* out, float* stats, float* ov, int B,
+                 int L, int H, uint32_t seed, float p, float inv, float scale,
                  cudaStream_t stream) {
     static bool set[MAX_DEVICES] = {};
     auto kern = attn_fwd_sm90_kernel<DROP, SEG>;
@@ -754,12 +823,12 @@ struct Launch {
     kern<<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), mask, seg, static_cast<bf16*>(out),
-        stats, L, H, seed, p, inv, scale);
+        stats, ov, L, H, seed, p, inv, scale);
     return (int)cudaGetLastError();
   }
   static int bwd(const void* q, const void* k, const void* v,
                  const int* mask, const int* seg, const void* g,
-                 const void* o, const float* stats, void* dq, void* dk,
+                 const float* ov, const float* stats, void* dq, void* dk,
                  void* dv, int B, int L, int H, uint32_t seed, float p,
                  float inv, float inv32, float scale, float scale32,
                  cudaStream_t stream) {
@@ -771,7 +840,7 @@ struct Launch {
     kern<<<grid, BWD_THREADS, BWD_SMEM, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), mask, seg, static_cast<const bf16*>(g),
-        static_cast<const bf16*>(o), stats, static_cast<bf16*>(dq),
+        ov, stats, static_cast<bf16*>(dq),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H, seed, p, inv,
         inv32, scale, scale32);
     return (int)cudaGetLastError();
@@ -793,36 +862,40 @@ bool shape_ok(int B, int L, int H, float p) {
 
 // C entry points for ctypes; each returns a cudaError_t (0 on success).
 // q/k/v/out [B, L, H, 64] bf16, contiguous, 16-byte aligned; mask and seg
-// [B, L] int32 (seg NULL without segments); stats [B, H, L, 2] fp32 (the
-// forward writes it when not NULL; the backward reads it).
+// [B, L] int32 (seg NULL without segments); stats [B, H, L, 2] fp32 and
+// ov [B, L, H, 64] fp32 (the backward's residual: the row's max and sum,
+// and sum_k keep * probs * v; the forward writes them when not NULL, the
+// backward reads them).
 extern "C" int attn_fwd_sm90_launch(const void* q, const void* k,
                                     const void* v, const int* mask,
                                     const int* seg, void* out, float* stats,
-                                    int B, int L, int H, int seed, float p,
-                                    float inv, float scale, void* stream) {
+                                    float* ov, int B, int L, int H, int seed,
+                                    float p, float inv, float scale,
+                                    void* stream) {
   using namespace cldrd_attn90;
-  if (!shape_ok(B, L, H, p)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, L, H, p) || (stats == nullptr) != (ov == nullptr))
+    return (int)cudaErrorInvalidValue;
   return dispatch(p > 0.f, seg != nullptr, [&](auto l) {
-    return decltype(l)::fwd(q, k, v, mask, seg, out, stats, B, L, H,
+    return decltype(l)::fwd(q, k, v, mask, seg, out, stats, ov, B, L, H,
                             (uint32_t)seed, p, inv, scale,
                             (cudaStream_t)stream);
   });
 }
 
-// g, out (the forward's), dq, dk, dv [B, L, H, 64] bf16 as above.
+// g, dq, dk, dv [B, L, H, 64] bf16 as above; stats and ov the forward's.
 extern "C" int attn_bwd_sm90_launch(const void* q, const void* k,
                                     const void* v, const int* mask,
                                     const int* seg, const void* g,
-                                    const void* out, const float* stats,
+                                    const float* ov, const float* stats,
                                     void* dq, void* dk, void* dv, int B,
                                     int L, int H, int seed, float p,
                                     float inv, float inv32, float scale,
                                     float scale32, void* stream) {
   using namespace cldrd_attn90;
-  if (!shape_ok(B, L, H, p) || stats == nullptr)
+  if (!shape_ok(B, L, H, p) || stats == nullptr || ov == nullptr)
     return (int)cudaErrorInvalidValue;
   return dispatch(p > 0.f, seg != nullptr, [&](auto l) {
-    return decltype(l)::bwd(q, k, v, mask, seg, g, out, stats, dq, dk, dv, B,
+    return decltype(l)::bwd(q, k, v, mask, seg, g, ov, stats, dq, dk, dv, B,
                             L, H, (uint32_t)seed, p, inv, inv32, scale,
                             scale32, (cudaStream_t)stream);
   });

@@ -33,7 +33,6 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_FNS: Dict[tuple, object] = {}  # (stem, entry point) -> typed function
 BUILD_SECONDS: Dict[str, float] = {}  # per source, from the last build
 
 
@@ -156,12 +155,9 @@ def launch(stem: str, fn_name: str, argtypes, *args, device) -> None:
     ``cudaError_t``."""
     import torch
 
-    fn = _FNS.get((stem, fn_name))
-    if fn is None:
-        fn = getattr(load(stem), fn_name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
-        _FNS[(stem, fn_name)] = fn
+    fn = getattr(load(stem), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
     with torch.cuda.device(device):
         status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if status != 0:

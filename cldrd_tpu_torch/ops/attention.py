@@ -37,7 +37,6 @@ entry point they went through.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -103,7 +102,6 @@ def _in_dtype(x: float, dtype) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float64).to(dtype)
 
 
-@functools.lru_cache(maxsize=None)
 def _scalars(dropout_p: float, head_dim: int, dtype) -> Tuple[float, ...]:
     """The launchers' (inv, inv32, scale, scale32): 1/(1-p) and
     1/sqrt(head_dim) rounded to the compute dtype and to fp32."""
@@ -149,12 +147,26 @@ def train_fwd_plain(q, k, v, mask, seed: int, dropout_p: float,
                         v.float()).to(q.dtype)
 
 
-def train_bwd_plain(q, k, v, mask, seed: int, dropout_p: float,
-                    segment_ids, g) -> Tuple[torch.Tensor, ...]:
-    """K4's plain version: (dq, dk, dv) by the reference kernel's backward
-    arithmetic (softmax backward on the pre-dropout probs, in fp32)."""
+def residual_ov_plain(q, k, v, mask, seed: int, dropout_p: float,
+                      segment_ids=None) -> torch.Tensor:
+    """The sm90 forward's second output, ov = sum_k keep * probs * v in
+    fp32 [B, L, H, D] (probs in the compute dtype, unscaled): inv32 *
+    (g . ov) is the softmax backward's row sum, rowsum(dp * probs), in
+    another order."""
+    probs = _probs(q, k, mask, segment_ids)
+    if dropout_p > 0.0:
+        b, lq, h, _ = q.shape
+        keep = dropout_keep_mask(b, h, lq, k.shape[1], seed, dropout_p,
+                                 q.device)
+        probs = torch.where(keep, probs, torch.zeros_like(probs))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+
+
+def _ds_plain(q, k, v, mask, seed: int, dropout_p: float, segment_ids,
+              g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's plain (dS, probs_d), both fp32 [B, H, Lq, Lk]: the softmax
+    backward on the pre-dropout probs, dS rounded to the compute dtype."""
     dt = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
     probs = _probs(q, k, mask, segment_ids)
     dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
     probs_d = probs
@@ -167,10 +179,48 @@ def train_bwd_plain(q, k, v, mask, seed: int, dropout_p: float,
         inv32 = _in_dtype(1.0 / (1.0 - dropout_p), torch.float32).to(
             q.device)
         dp = torch.where(keep, dp * inv32, torch.zeros_like(dp))
-    dv = torch.einsum("bhqk,bqhd->bkhd", probs_d.float(), g.float())
     pf = probs.float()
     ds = (pf * (dp - (dp * pf).sum(-1, keepdim=True))).to(dt).float()
-    scale32 = _in_dtype(scale, torch.float32).to(q.device)
+    return ds, probs_d.float()
+
+
+def sm90_bwd_bound(q, k, v, mask, seed: int, dropout_p: float,
+                   segment_ids, g, dq, dk) -> Tuple[torch.Tensor, ...]:
+    """How far, element by element, the sm90 backward's dq and dk may lie
+    from the plain versions ``dq``, ``dk`` (fp32 bounds, their shapes).
+    Each dS element may move by one bf16 ulp of itself (2^-7, doubled)
+    and by what fp32 dots of 64 terms in another order give its
+    (dp - rowsum) (2^-16 of the absolute terms, 4x the 64 * 2^-24 worst
+    case), and each output by one ulp: |err| <= scale * (E . |k|) +
+    2^-7 * |dq| with E = 2^-6 * |dS| + 2^-16 * probs * (|g| . |v|^T *
+    inv32 + inv32 * (|g| . |ov|)), and the same with E^T and |q| for
+    dk."""
+    ds, _ = _ds_plain(q, k, v, mask, seed, dropout_p, segment_ids, g)
+    probs = _probs(q, k, mask, segment_ids).float()
+    inv32 = _in_dtype(1.0 / (1.0 - dropout_p), torch.float32).to(q.device)
+    ga, va = g.float().abs(), v.float().abs()
+    ov = residual_ov_plain(q, k, v, mask, seed, dropout_p, segment_ids)
+    terms = (torch.einsum("bqhd,bkhd->bhqk", ga, va)
+             + torch.einsum("bqhd,bqhd->bhq", ga, ov.abs())[..., None]
+             ) * inv32
+    e = 2.0 ** -6 * ds.abs() + 2.0 ** -16 * probs * terms
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bq = (scale * torch.einsum("bhqk,bkhd->bqhd", e, k.float().abs())
+          + 2.0 ** -7 * dq.float().abs())
+    bk = (scale * torch.einsum("bhqk,bqhd->bkhd", e, q.float().abs())
+          + 2.0 ** -7 * dk.float().abs())
+    return bq, bk
+
+
+def train_bwd_plain(q, k, v, mask, seed: int, dropout_p: float,
+                    segment_ids, g) -> Tuple[torch.Tensor, ...]:
+    """K4's plain version: (dq, dk, dv) by the reference kernel's backward
+    arithmetic (softmax backward on the pre-dropout probs, in fp32)."""
+    dt = q.dtype
+    ds, probs_d = _ds_plain(q, k, v, mask, seed, dropout_p, segment_ids, g)
+    scale32 = _in_dtype(1.0 / math.sqrt(q.shape[-1]), torch.float32).to(
+        q.device)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs_d, g.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale32
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale32
     return dq.to(dt), dk.to(dt), dv.to(dt)
@@ -254,6 +304,9 @@ def _aligned(name, *tensors):
 
 def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
                 name):
+    """K3 (K5 as ``name="infer"``): returns (out, res), with res the
+    backward's residual (stats, ov) when ``with_stats`` (see
+    ``_launch_bwd``), else None."""
     _check(name, q, k, v, mask, segment_ids)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask, seg = _i32(mask), _i32(segment_ids)
@@ -261,16 +314,19 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
     out = torch.empty_like(q)
     stats = (torch.empty((b, h, length, 2), dtype=torch.float32,
                          device=q.device) if with_stats else None)
+    ov = None
     inv, _, scale, _ = _scalars(float(dropout_p), d, q.dtype)
     if _kernel_route(q.dtype, length, d, name) == "sm90":
-        _aligned(name, q, k, v, out)
+        if with_stats:
+            ov = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        _aligned(name, q, k, v, out, ov)
         entry = "attn_fwd_sm90_launch"
         _build.launch(
             "attention_sm90", entry,
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
             + [ctypes.c_float] * 3,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            _ptr(seg), out.data_ptr(), _ptr(stats), b, length, h,
+            _ptr(seg), out.data_ptr(), _ptr(stats), _ptr(ov), b, length, h,
             _seed32(seed), float(dropout_p), inv, scale, device=q.device)
     else:
         entry = "attn_fwd_launch"
@@ -284,13 +340,15 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
             float(dropout_p), inv, scale, device=q.device)
     LAUNCHES[name] += 1
     ENTRY_LAUNCHES[entry] += 1
-    return out, stats
+    return out, (None if stats is None else (stats, ov))
 
 
-def _launch_bwd(q, k, v, mask, seed, dropout_p, segment_ids, stats, out,
-                g):
-    """K4: (dq, dk, dv) from the forward's (max, sum) residual ``stats``
-    and its output ``out`` (the sm90 kernels take rowsum(g * out))."""
+def _launch_bwd(q, k, v, mask, seed, dropout_p, segment_ids, res, g):
+    """K4: (dq, dk, dv) from the forward's residual ``res`` = (stats, ov):
+    the rows' (max, sum) [B, H, L, 2] and, from the sm90 forward,
+    ov = sum_k keep * probs * v [B, L, H, D] fp32, whose dot with g is
+    the softmax backward's row sum (None from the tiled forward)."""
+    stats, ov = res
     _check("train_bwd", q, k, v, mask, segment_ids, g)
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     mask, seg = _i32(mask), _i32(segment_ids)
@@ -298,18 +356,18 @@ def _launch_bwd(q, k, v, mask, seed, dropout_p, segment_ids, stats, out,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     inv, inv32, scale, scale32 = _scalars(float(dropout_p), d, q.dtype)
     if _kernel_route(q.dtype, length, d, "train_bwd") == "sm90":
-        if out is None or out.shape != q.shape or out.dtype != q.dtype:
-            raise ValueError("train_bwd: the sm90 kernels need the "
-                             "forward's output")
-        out = out.contiguous()
-        _aligned("train_bwd", q, k, v, g, out, dq, dk, dv)
+        if (ov is None or ov.shape != q.shape or ov.dtype != torch.float32
+                or not ov.is_contiguous()):
+            raise ValueError("train_bwd: the sm90 kernels need the sm90 "
+                             "forward's residual")
+        _aligned("train_bwd", q, k, v, g, ov, dq, dk, dv)
         entry = "attn_bwd_sm90_launch"
         _build.launch(
             "attention_sm90", entry,
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
             + [ctypes.c_float] * 5,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            _ptr(seg), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            _ptr(seg), g.data_ptr(), ov.data_ptr(), stats.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, length, h,
             _seed32(seed), float(dropout_p), inv, inv32, scale, scale32,
             device=q.device)
@@ -349,25 +407,24 @@ class _TrainAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, dropout_p, segment_ids):
         if _route(q) == "plain":
-            out, stats = train_fwd_plain(q, k, v, mask, seed, dropout_p,
-                                         segment_ids), None
+            out, res = train_fwd_plain(q, k, v, mask, seed, dropout_p,
+                                       segment_ids), (None, None)
         else:
-            out, stats = _launch_fwd(q, k, v, mask, seed, dropout_p,
-                                     segment_ids, True, "train_fwd")
-        ctx.save_for_backward(q, k, v, mask, segment_ids, stats,
-                              None if stats is None else out)
+            out, res = _launch_fwd(q, k, v, mask, seed, dropout_p,
+                                   segment_ids, True, "train_fwd")
+        ctx.save_for_backward(q, k, v, mask, segment_ids, *res)
         ctx.seed, ctx.dropout_p = seed, dropout_p
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask, segment_ids, stats, out = ctx.saved_tensors
+        q, k, v, mask, segment_ids, stats, ov = ctx.saved_tensors
         if stats is None:
             grads = train_bwd_plain(q, k, v, mask, ctx.seed, ctx.dropout_p,
                                     segment_ids, g)
         else:
             grads = _launch_bwd(q, k, v, mask, ctx.seed, ctx.dropout_p,
-                                segment_ids, stats, out, g)
+                                segment_ids, (stats, ov), g)
         return (*grads, None, None, None, None)
 
 

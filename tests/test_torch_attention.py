@@ -94,6 +94,33 @@ def test_train_attention_matches_pallas_kernels(p, segments, dtype):
         _close(t.grad.float(), j.astype(jnp.float32), rtol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,segments", [(0.0, False), (0.2, False),
+                                        (0.2, True)])
+def test_row_sum_from_residual_equals_reference_row_sum(p, segments,
+                                                        dtype):
+    """The sm90 backward takes the softmax backward's row sum,
+    rowsum(dp * probs) with dp = (g . v^T) * keep * inv32, as inv32 *
+    (g . ov), ov the forward's sum_k keep * probs * v: one sum in two
+    orders, equal within fp32 rounding."""
+    q, k, v, g, mask, seg = _qkvg(np.random.default_rng(3), seq=40,
+                                  segments=segments)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(x).to(tdt) for x in (q, k, v, g))
+    tm = torch.from_numpy(mask)
+    ts = None if seg is None else torch.from_numpy(seg)
+    probs = ta._probs(tq, tk, tm, ts).float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", tg.float(), tv.float())
+    inv32 = ta._in_dtype(1.0 / (1.0 - p), torch.float32)
+    if p > 0.0:
+        keep = ta.dropout_keep_mask(2, 4, 40, 40, 7, p)
+        dp = torch.where(keep, dp * inv32, torch.zeros_like(dp))
+    want = (dp * probs).sum(-1)                       # [B, H, L]
+    ov = ta.residual_ov_plain(tq, tk, tv, tm, 7, p, ts)
+    got = inv32 * (tg.float() * ov).sum(-1).permute(0, 2, 1)
+    _close(got, want, 1e-5)
+
+
 def test_infer_attention_matches_pallas_kernel_and_its_backward():
     """K5's plain version against the reference kernel; the backward
     recomputes through xla_attention, as the reference's does."""

@@ -12,8 +12,11 @@ in fp32 (fp32 sums in other orders; one wrong dropout bit would show as
 about |v|/L) and 2e-2 in bf16 (one bf16 ulp of a probability near 1).
 bf16 training launches with head_dim 64 and L <= 256 take the Hopper
 kernels (csrc/attention_sm90.cu); on inputs where every value is exact
-in bf16 their out and dv must EQUAL the plain versions, so a single
-wrong dropout bit fails, and two launches must give the same bits.
+in bf16 their out, dv, dq and dk must EQUAL the plain versions, so a
+single wrong dropout bit or dS element fails; on normal data their dq
+and dk lie
+within a per-element bound of one bf16 ulp per dS term; and two
+launches must give the same bits.
 """
 import ctypes
 
@@ -349,10 +352,9 @@ def test_sm90_dropout_is_bit_exact(length):
     fails."""
     dev = _device()
     q, k, v, gr, mask = _exact_inputs(dev, 2, length, 4)
-    out, stats = att._launch_fwd(q, k, v, mask, 31, 0.1, None, True,
-                                 "train_fwd")
-    _, _, dv = att._launch_bwd(q, k, v, mask, 31, 0.1, None, stats, out,
-                               gr)
+    out, res = att._launch_fwd(q, k, v, mask, 31, 0.1, None, True,
+                               "train_fwd")
+    _, _, dv = att._launch_bwd(q, k, v, mask, 31, 0.1, None, res, gr)
     ref = att.train_fwd_plain(q, k, v, mask, 31, 0.1)
     _, _, rv = att.train_bwd_plain(q, k, v, mask, 31, 0.1, None, gr)
     torch.cuda.synchronize()
@@ -361,20 +363,101 @@ def test_sm90_dropout_is_bit_exact(length):
     assert torch.equal(dv, rv)
 
 
+def _padded_mask(dev, b, length, g):
+    """Keys padded as the main path's rows are: 1/8 to 1/3 of each row
+    real (a query's ~8 tokens of 30, a passage's 32-86 of 256)."""
+    n = torch.randint(max(2, length // 8), length // 3 + 2, (b, 1),
+                      generator=g, device=dev)
+    return (torch.arange(length, device=dev)[None] < n).int()
+
+
+def _segments(dev, b, length):
+    """Packed rows: three segments and a padded tail."""
+    seg = torch.zeros(b, length, dtype=torch.int32, device=dev)
+    seg[:, :length // 4] = 1
+    seg[:, length // 4:length // 2] = 2
+    seg[:, length // 2:length - 9] = 3
+    return (seg > 0).int(), seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dq", "dk"])
+@pytest.mark.parametrize("b,length,segments", [
+    (8, 30, False), (3, 200, False), (2, 256, False), (2, 256, True)])
+def test_sm90_grads_are_exact_on_exact_inputs(form, b, length, segments):
+    """Every score of a row equal (form dq: q = 0, k one-hot over keys;
+    form dk: q one-hot over queries, every key e_0), v one-hot over keys,
+    g small integers, keys padded as on the main path, p = 0.5 (so inv
+    and inv32 are 2, exact): every sum is exact, so out, dv, the
+    residual ov and dq (or dk) EQUAL the plain versions. One wrong keep
+    bit on probs or dp, row sum or dS element fails."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = (b, length, 4, 64)
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % 64 == torch.arange(64, device=dev)[None, :])
+    hot = hot[None, :, None, :].expand(shape).to(torch.bfloat16)
+    hot = hot.contiguous()
+    zero = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    if form == "dq":
+        q, k = zero, hot
+    else:
+        q, k = hot, zero.clone()
+        k[..., 0] = 1
+    gr = torch.randint(-2, 3, shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    mask, seg = (_segments(dev, b, length) if segments
+                 else (_padded_mask(dev, b, length, g), None))
+    out, res = att._launch_fwd(q, k, hot, mask, 31, 0.5, seg, True,
+                               "train_fwd")
+    dq, dk, dv = att._launch_bwd(q, k, hot, mask, 31, 0.5, seg, res, gr)
+    ref = att.train_fwd_plain(q, k, hot, mask, 31, 0.5, seg)
+    rov = att.residual_ov_plain(q, k, hot, mask, 31, 0.5, seg)
+    rq, rk, rv = att.train_bwd_plain(q, k, hot, mask, 31, 0.5, seg, gr)
+    torch.cuda.synchronize()
+    got, want = (dq, rq) if form == "dq" else (dk, rk)
+    for x, y in ((out, ref), (res[1], rov), (dv, rv), (got, want)):
+        assert y.abs().max() > 0
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,segments", [
+    (8, 30, False), (2, 200, False), (2, 256, False), (2, 256, True)])
+def test_sm90_grads_within_per_element_bound(b, length, segments):
+    """On normal data with the main path's padding, each element of dq
+    and dk lies within ``sm90_bwd_bound`` of the plain versions: one
+    bf16 ulp of every dS term, fp32 dots in another order, one ulp of
+    the output."""
+    dev = _device()
+    q, k, v, gr, _, _ = _attn_inputs(dev, b, length, 12, 64, torch.bfloat16,
+                                     False, 9)
+    g = torch.Generator(device=dev).manual_seed(9)
+    mask, seg = (_segments(dev, b, length) if segments
+                 else (_padded_mask(dev, b, length, g), None))
+    _, res = att._launch_fwd(q, k, v, mask, 5, 0.1, seg, True, "train_fwd")
+    dq, dk, _ = att._launch_bwd(q, k, v, mask, 5, 0.1, seg, res, gr)
+    rq, rk, _ = att.train_bwd_plain(q, k, v, mask, 5, 0.1, seg, gr)
+    bq, bk = att.sm90_bwd_bound(q, k, v, mask, 5, 0.1, seg, gr, rq, rk)
+    torch.cuda.synchronize()
+    for got, want, bound in ((dq, rq, bq), (dk, rk, bk)):
+        assert ((got.float() - want.float()).abs() <= bound).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("segments", [False, True])
 def test_sm90_is_deterministic(segments):
     """Two launches of the sm90 kernels on the same inputs give the same
-    bits for out, dq, dk and dv."""
+    bits for out, the residual (stats, ov), dq, dk and dv."""
     dev = _device()
     q, k, v, gr, mask, seg = _attn_inputs(dev, 2, 256, 4, 64,
                                           torch.bfloat16, segments, 3)
     runs = []
     for _ in range(2):
-        out, stats = att._launch_fwd(q, k, v, mask, 77, 0.1, seg, True,
-                                     "train_fwd")
-        runs.append((out, *att._launch_bwd(q, k, v, mask, 77, 0.1, seg,
-                                           stats, out, gr)))
+        out, res = att._launch_fwd(q, k, v, mask, 77, 0.1, seg, True,
+                                   "train_fwd")
+        runs.append((out, *res, *att._launch_bwd(q, k, v, mask, 77, 0.1,
+                                                 seg, res, gr)))
     torch.cuda.synchronize()
     for x, y in zip(*runs):
         assert torch.equal(x, y)
