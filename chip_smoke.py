@@ -36,8 +36,17 @@ Phases (each raises on any failure; the script then exits non-zero):
    scaled_dot_product_attention (K6: a gather + bf16 bmm, no one call);
    K3/K4 at the passage shape and at the packed one (64 rows of 256 with
    segments), beside the tiled kernels of attention.cu on the same
-   inputs. Every time in the kernels line is a device time: the summed
-   durations of the kernels one call launches (torch.profiler).
+   inputs. K1 takes extract_topk_sm90.cu for bf16 queries against bf16
+   and int8 stores at bin 128 (B=64, 128, 512 held EQUAL) and
+   extract_topk.cu for fp32 and the other bins; it is timed beside
+   extract_topk.cu forced on the same inputs and beside a bare bf16
+   torch.matmul over the store. K5 takes attention_infer.cu at the query
+   encode (B=512, L=30) and the sm90 forward at B=240, L=256, each held
+   to its plain version with the query tower's padding (EQUAL on exact
+   inputs) and timed beside attention.cu's tiled forward forced on the
+   same inputs and SDPA. Every time in the kernels line is a device
+   time: the summed durations of the kernels one call launches
+   (torch.profiler).
 3. search: FlatIPIndex stood up on the device at MS MARCO scale
    (8,847,360 x 768 int8 with scales, then 1,048,576 x 768 bf16). K1 is
    first held to its plain version at the int8 store's own shape (EQUAL
@@ -82,7 +91,9 @@ Phases (each raises on any failure; the script then exits non-zero):
 Phases 3-6 drive the port's four paths (search, train, pipeline,
 serve). Kernel launch counts are set to 0 just before each and read just
 after it: a kernel its path must reach with no launch there fails the
-run, and the kernels line sums the four windows. The serve phase checks
+run, every K1 and K5 launch of a window must have gone through the
+Hopper entry points (extract_topk_sm90_launch, attn_infer_short_launch),
+and the kernels line sums the four windows. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
 start-up and the requests they answer), counted the same way.
@@ -391,11 +402,16 @@ def phase_build(ctx):
     paths = _build.build_all()
     ctx["build_s"] = time.perf_counter() - t0
     for stem in paths:
-        report = [l for l in _build.build_log(stem).splitlines()
-                  if "registers" in l or "spill" in l or "error" in l]
         log(f"[build] {stem}: {_build.BUILD_SECONDS.get(stem, 0.0):.1f} s")
-        for line in report:
-            log(f"[build]   {line.strip()}")
+        # one line per kernel: its (mangled) name, registers and spills
+        entry = spill = ""
+        for line in _build.build_log(stem).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line or "error" in line:
+                log(f"[build]   {entry}: {line.strip()}; {spill}")
     log(f"[build] all kernels: {ctx['build_s']:.1f} s")
 
 
@@ -404,7 +420,7 @@ def phase_kernels(ctx):
     n = N_KERNEL
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     # exactness on integer-valued inputs, ties included
-    for bz in (128, SEARCH_BATCH):
+    for bz in (64, 128, SEARCH_BATCH):
         _compare_k1(ctx, bz, n, bf16, bf16, True)
         _compare_k1(ctx, bz, n, i8, bf16, True)
     _compare_k1(ctx, 128, n, f32, f32, True)
@@ -446,6 +462,7 @@ def phase_kernels(ctx):
             _attn_exact(ctx, tag, b, length, segments, form)
         _attn_tight(ctx, tag, b, length, segments)
     _attn_determinism(ctx, TRAIN_BZ * NWAY, TRAIN_LP)
+    _infer_checks(ctx)
     _attn_model_calls_check(ctx)
     torch.cuda.empty_cache()
     _time_attention(ctx)
@@ -600,9 +617,11 @@ def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
     ot = op_type(q.dtype, c.dtype)
     rows = ctx.setdefault("timings", {})
     b1, o1 = k1_bytes_ops(bz, n, D, c.dtype, q.dtype, R2, scales is not None)
+    k1_call = lambda: extract_topk(q, c, ids, R, R2, 128, scales)  # noqa
+    with _k1_generic():  # the kernel of PRs 1-4, same inputs
+        t_generic = device_ms(k1_call, reps=5, warmup=1)
     rows.setdefault("extract_topk", {})[tag] = dict(
-        ms=device_ms(lambda: extract_topk(q, c, ids, R, R2, 128, scales),
-                     reps=5, warmup=1),
+        ms=device_ms(k1_call, reps=5, warmup=1), generic_ms=t_generic,
         plain_ms=device_ms(lambda: extract_topk_plain(q, c, ids, R, R2, 128,
                                                       scales),
                            reps=1, warmup=1),
@@ -620,9 +639,12 @@ def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
     for kernel in ("extract_topk", "fused_binmax"):
         r = rows.get(kernel, {}).get(tag)
         if r:
-            log(f"[time] {kernel} {tag} B={bz} N={n}: kernel {r['ms']:.3f} ms,"
-                f" plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms"
-                f" ({r['bound'][1]}), torch.matmul bf16 {t_mm:.3f} ms")
+            old = (f" (extract_topk.cu, forced: {r['generic_ms']:.3f} ms)"
+                   if "generic_ms" in r else "")
+            log(f"[time] {kernel} {tag} B={bz} N={n}, device ms: kernel "
+                f"{r['ms']:.3f}{old}, plain {r['plain_ms']:.3f}, bound "
+                f"{r['bound'][0]:.3f} ({r['bound'][1]}), torch.matmul bf16 "
+                f"{t_mm:.3f}")
 
 
 # ------------------------------------------------ attention vs plain
@@ -851,6 +873,62 @@ def _attn_model_calls_check(ctx):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def _query_tower_mask(ctx, b, length):
+    """Most keys padded, as the query tower's rows are (1 to L/3 + 1 real
+    tokens of L), and row 1 fully masked (the reference gives 1/L)."""
+    dev = ctx["dev"]
+    n = torch.randint(1, length // 3 + 2, (b, 1), generator=ctx["gen"],
+                      device=dev)
+    mask = (torch.arange(length, device=dev)[None] < n).int()
+    mask[1] = 0
+    return mask
+
+
+def _infer_checks(ctx):
+    """K5 through flash_attention at the query encode (B=512, L=30: the
+    short-row kernel of attention_infer.cu) and at B=240, L=256 (the sm90
+    forward at p=0), with the query tower's padding: within 2e-2 of the
+    largest magnitude of attention_plain on normal data; on exact inputs
+    (every score of a row equal: q = 0 and k one-hot, or q one-hot and
+    every key e_0; v one-hot over keys) EQUAL to it."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    dev, bf16 = ctx["dev"], torch.bfloat16
+    for tag, b, length in (("encode", SEARCH_BATCH, TRAIN_LQ),
+                           ("L256", TRAIN_BZ * NWAY, TRAIN_LP)):
+        route = att._kernel_route(bf16, length, HEAD_DIM, "infer")
+        shape = (b, length, HEADS, HEAD_DIM)
+        q, k, v = (torch.randn(shape, generator=ctx["gen"], device=dev)
+                   .to(bf16) for _ in range(3))
+        mask = _query_tower_mask(ctx, b, length)
+        out = att.flash_attention(q, k, v, mask)
+        ref = att.attention_plain(q, k, v, mask)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= 2e-2 * ref.float().abs().max().item():
+            raise AssertionError(f"K5 {route} {tag}: max abs err {err:.3g}")
+        pos = torch.arange(length, device=dev)
+        hot = (pos[:, None] % HEAD_DIM
+               == torch.arange(HEAD_DIM, device=dev)[None, :])
+        hot = hot[None, :, None, :].expand(shape).to(bf16).contiguous()
+        zero = torch.zeros(shape, dtype=bf16, device=dev)
+        e0 = zero.clone()
+        e0[..., 0] = 1
+        for form, qx, kx in (("q0", zero, hot), ("k0", hot, e0)):
+            got = att.flash_attention(qx, kx, hot, mask)
+            want = att.attention_plain(qx, kx, hot, mask)
+            if not (want.abs().max() > 0 and torch.equal(got, want)):
+                raise AssertionError(f"K5 {route} {tag} exact ({form}): "
+                                     f"{int((got != want).sum())} elements "
+                                     "differ from the plain version")
+        log(f"[kernels] K5 {route} {tag} B={b} L={length} bf16, query-tower "
+            f"padding: agrees with the plain version (max abs err {err:.3g};"
+            " tolerance 2e-2 of the largest magnitude), EQUAL on exact "
+            "inputs (two forms)")
+        ctx["k5_err"] = max(ctx.get("k5_err", 0.0), err)
+        del q, k, v, hot, zero, e0
+    torch.cuda.empty_cache()
+
+
 def _attn_determinism(ctx, b, length):
     """Two launches of K3 + K4 on the same inputs give the same bits."""
     from cldrd_tpu_torch.ops import attention as att
@@ -945,25 +1023,34 @@ def _time_attention(ctx):
     _time_train_attention(ctx, "packed", 64, True)
     rows = ctx["timings"]
     bf16 = torch.bfloat16
-    b, length = SEARCH_BATCH, TRAIN_LQ
-    q, k, v, _, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
-    amask = (mask != 0)[:, None, None, :]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2)
-    k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=amask)
-    rows["attention_infer"] = {"encode": dict(
-        ms=device_ms(k5),
-        plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
-                           reps=3, warmup=1),
-        bound=bound_ms(nb5, ops5, "bf16"), library_ms=device_ms(lib), B=b,
-        L=length)}
+    # K5 at the query encode (B=512, L=30: the short-row kernel) and at
+    # the passage shape (B=240, L=256: the sm90 forward at p=0), each
+    # beside the tiled forward of attention.cu forced on the same inputs
+    for tag, b, length in (("encode", SEARCH_BATCH, TRAIN_LQ),
+                           ("L256", TRAIN_BZ * NWAY, TRAIN_LP)):
+        q, k, v, _, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
+        amask = (mask != 0)[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2)
+        k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=amask)
+        with _train_attention_route("tiled"):  # K5's route too
+            t_tiled = device_ms(k5)
+        rows.setdefault("attention_infer", {})[tag] = dict(
+            ms=device_ms(k5), tiled_ms=t_tiled,
+            route=att._kernel_route(bf16, length, HEAD_DIM, "infer"),
+            plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
+                               reps=3, warmup=1),
+            bound=bound_ms(nb5, ops5, "bf16"), library_ms=device_ms(lib),
+            B=b, L=length)
+        del q, k, v, mask, amask, qt, kt, vt
     for name, tag in (("attention_train_fwd", "train"),
                       ("attention_train_bwd", "train"),
                       ("attention_train_fwd", "packed"),
                       ("attention_train_bwd", "packed"),
-                      ("attention_infer", "encode")):
+                      ("attention_infer", "encode"),
+                      ("attention_infer", "L256")):
         r = rows[name][tag]
         tiled = (f" (the tiled kernels of attention.cu: {r['tiled_ms']:.3f}"
                  " ms)" if "tiled_ms" in r else "")
@@ -1967,8 +2054,8 @@ ROUTES = ("sm90", "tiled", "plain")
 def _train_attention_route(route):
     """Train attention on the card through one route: "sm90" (what
     _kernel_route picks for bf16, head_dim 64, L <= 256), "tiled" (the
-    kernels of attention.cu, forced) or "plain" (the plain PyTorch
-    versions, on the card's tensors)."""
+    kernels of attention.cu, forced; K5's launches too) or "plain" (the
+    plain PyTorch versions, on the card's tensors)."""
     from cldrd_tpu_torch.ops import attention as att
 
     saved = att._kernel_route, att._route
@@ -1982,6 +2069,20 @@ def _train_attention_route(route):
         yield
     finally:
         att._kernel_route, att._route = saved
+
+
+@contextlib.contextmanager
+def _k1_generic():
+    """K1 on the card through extract_topk.cu, forced (the kernel of PRs
+    1-4), in place of what kernel_route picks."""
+    from cldrd_tpu_torch.ops import extract_topk as k1_mod
+
+    saved = k1_mod.kernel_route
+    k1_mod.kernel_route = lambda *a: "generic"
+    try:
+        yield
+    finally:
+        k1_mod.kernel_route = saved
 
 
 def _route_model_config():
@@ -2402,7 +2503,7 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
         "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
         "shape": tag,
     }
-    for key in ("matmul_ms", "library_note"):
+    for key in ("matmul_ms", "library_note", "generic_ms", "tiled_ms"):
         if key in t:
             rec[key] = t[key]
     return rec
@@ -2410,7 +2511,7 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
 
 # (record name, counter, source, TPU kernel, timed shape, error key)
 KERNELS = [
-    ("extract_topk", ("extract_topk", None), "csrc/extract_topk.cu",
+    ("extract_topk", ("extract_topk", None), "csrc/extract_topk_sm90.cu",
      "cldrd_tpu/search/mips.py:605", "int8_full", "k1_err"),
     ("fused_binmax", ("fused_binmax", None), "csrc/fused_binmax.cu",
      "cldrd_tpu/search/mips.py:361", "bf16_1M", "k2_err"),
@@ -2420,8 +2521,8 @@ KERNELS = [
     ("attention_train_bwd", ("attention", "train_bwd"),
      "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:257", "train",
      "attn_err_bf16"),
-    ("attention_infer", ("attention", "infer"), "csrc/attention.cu",
-     "cldrd_tpu/ops/attention.py:61", "encode", "attn_err_bf16"),
+    ("attention_infer", ("attention", "infer"), "csrc/attention_infer.cu",
+     "cldrd_tpu/ops/attention.py:61", "encode", "k5_err"),
     ("ivf_probe", ("ivf_probe", None), "csrc/ivf_probe.cu",
      "cldrd_tpu/ops/ivf_probe.py:60", "int8_full_b8", "k6_err"),
 ]
@@ -2439,6 +2540,13 @@ def _counters():
             "attention": attention, "ivf_probe": ivf_probe}
 
 
+# the C entry points whose launches the paths must show: every K1 launch
+# of the main path through the sm90 kernel, every K5 launch through the
+# short-row one (the query encode's L=30)
+ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
+           "attention_infer": ("attention", "attn_infer_short_launch")}
+
+
 def reset_launches():
     for mod in _counters().values():
         if isinstance(mod.LAUNCHES, dict):
@@ -2446,13 +2554,30 @@ def reset_launches():
                 mod.LAUNCHES[key] = 0
         else:
             mod.LAUNCHES = 0
+        for key in getattr(mod, "ENTRY_LAUNCHES", {}):
+            mod.ENTRY_LAUNCHES[key] = 0
 
 
 def read_launches():
+    """Launches by kernel record (KERNELS) and, as "entry:<name>", by
+    the C entry point of ENTRIES."""
     mods = _counters()
-    return {name: (mods[m].LAUNCHES if key is None
-                   else mods[m].LAUNCHES[key])
-            for name, (m, key), *_ in KERNELS}
+    out = {name: (mods[m].LAUNCHES if key is None
+                  else mods[m].LAUNCHES[key])
+           for name, (m, key), *_ in KERNELS}
+    for m, entry in ENTRIES.values():
+        out[f"entry:{entry}"] = mods[m].ENTRY_LAUNCHES[entry]
+    return out
+
+
+def check_entries(path, window):
+    """Every K1 and K5 launch of a path's window went through the Hopper
+    entry point (K5's launches of the main path are all L=30)."""
+    for name, (_, entry) in ENTRIES.items():
+        if window[name] != window[f"entry:{entry}"]:
+            raise AssertionError(
+                f"the {path} path's {window[name]} {name} launches took "
+                f"{entry} {window[f'entry:{entry}']} times")
 
 
 def main(argv=None) -> int:
@@ -2512,10 +2637,12 @@ def main(argv=None) -> int:
         missing = [k for k in needs if window[k] <= 0]
         if missing:
             raise AssertionError(f"the {name} path launched no {missing}")
+        check_entries(name, window)
         for k, v in window.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0
+               and not k.startswith("entry:")]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     log(f"[main path] kernel launches: {launches}")
@@ -2528,7 +2655,7 @@ def main(argv=None) -> int:
                                 "attn_model_calls",
                                 "k2_err", "k6_err", "attn_err_fp32",
                                 "attn_err_bf16",
-                                "k1_checked", "build_s")}))
+                                "k5_err", "k1_checked", "build_s")}))
     log(smi_line())
     log(json.dumps({"kernels": [
         _kernel_record(ctx, name, f"cldrd_tpu_torch/{src}", ref, tag,

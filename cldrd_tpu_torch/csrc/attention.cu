@@ -1,8 +1,10 @@
 // K3/K5: fused attention forward, K4: its backward, for the DistilBERT
-// encoder's training and encode paths: the route for fp32, head_dim 32,
-// rows of 256 < L <= 512, and K5 (ops/attention.py::_kernel_route).
-// bf16 training launches with head_dim 64 and L <= 256 (every
-// train-attention launch of the main path) take attention_sm90.cu.
+// encoder's training and encode paths: the route for fp32, head_dim 32
+// and rows of 256 < L <= 512 (ops/attention.py::_kernel_route). No
+// launch of the main path takes it: bf16 training launches with head_dim
+// 64 and L <= 256 take attention_sm90.cu, and bf16 head_dim-64 K5
+// launches take attention_infer.cu (L <= 64) or attention_sm90.cu's
+// forward (64 < L <= 256).
 //
 // Replaces the TPU kernels cldrd_tpu/ops/attention.py::
 //   _train_fwd_kernel_factory (K3, launched by _train_fwd),

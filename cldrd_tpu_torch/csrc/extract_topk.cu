@@ -1,4 +1,8 @@
 // K1: fused scores + two-level in-block top-m extraction for exact search.
+// The route for bins other than 128 rows, fp32 queries or stores, and
+// widths that are not a multiple of 128 up to 768
+// (ops/extract_topk.py::kernel_route); every K1 launch of the main path
+// takes extract_topk_sm90.cu.
 //
 // Replaces the TPU kernel cldrd_tpu/search/mips.py::_extract_kernel_factory
 // (launched by _binmax_segment_extract). For each 2048-row super-block of
@@ -41,6 +45,7 @@
 #include <math.h>
 
 #include "score_tile.cuh"
+#include "topk_select.cuh"  // better, group_best, level2
 
 namespace cldrd {
 namespace {
@@ -72,76 +77,6 @@ struct BinPlan {
                               + 2 * SPAN * 4;          // row scale / validity
   static_assert(SPAN % (BIN * BPW) == 0, "whole passes");
 };
-
-// better(a, b): larger value, ties to the smaller index
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ float warp_max_f(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// (value desc, index asc) best over aligned groups of G lanes
-template <int G>
-__device__ __forceinline__ void group_best(float& v, int& i) {
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// Level 2 over a query's n buffered candidates: `rounds` rounds of best
-// (value desc, position asc), then mask every copy of that position.
-// Lane r < rounds returns round r's pick. Exhausted rounds re-emit the
-// lowest position among all entries with -inf, as the TPU kernel does.
-__device__ __forceinline__ void level2(const float* cv, const int* cp, int n,
-                                       int rounds, float& out_v, int& out_p) {
-  const int lane = threadIdx.x % 32;
-  float v[3];
-  int p[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int idx = lane + 32 * j;
-    if (idx < n) {
-      v[j] = cv[idx];
-      p[j] = cp[idx];
-    } else {
-      v[j] = -INFINITY;
-      p[j] = INT_MAX;
-    }
-  }
-  out_v = -INFINITY;
-  out_p = INT_MAX;
-  for (int rr = 0; rr < rounds; ++rr) {
-    float bv = v[0];
-    int bp = p[0];
-#pragma unroll
-    for (int j = 1; j < 3; ++j)
-      if (better(v[j], p[j], bv, bp)) {
-        bv = v[j];
-        bp = p[j];
-      }
-    group_best<32>(bv, bp);
-    if (lane == rr) {
-      out_v = bv;
-      out_p = bp;
-    }
-    // positions may repeat (an exhausted bin re-emits its lowest row):
-    // masking by position removes every copy
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      if (p[j] == bp) v[j] = -INFINITY;
-  }
-}
 
 template <int BIN, typename QT, typename CT>
 __global__ void __launch_bounds__(NTHREADS, 2)

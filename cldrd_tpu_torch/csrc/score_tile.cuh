@@ -1,5 +1,6 @@
-// Shared score-tile stage of the exact-search kernels (extract_topk.cu,
-// fused_binmax.cu).
+// Shared score-tile stage of the exact-search kernels extract_topk.cu
+// (K1's bins other than 128 and fp32 operands; the main path's K1 takes
+// extract_topk_sm90.cu) and fused_binmax.cu (K2, every launch).
 //
 // One thread block of NTHREADS threads computes the fp32 score tile
 //   S[q, r] = sum_k Q[q0 + q, k] * C[r0 + r, k],   q < QB, r < TILE_ROWS

@@ -11,10 +11,14 @@ Replaces the TPU kernels of ``cldrd_tpu/ops/attention.py``:
   Hopper kernels of ``csrc/attention_sm90.cu`` (one pass, rows held in
   shared memory, ``cp.async``, ``wgmma``); fp32, ``head_dim`` 32 and
   ``256 < L <= 512`` take the tiled kernels of ``csrc/attention.cu``;
-- K5 ``_attention_kernel`` becomes ``flash_attention``: its forward is
-  K3's kernel with no dropout and no segments, its backward recomputes
-  through the plain einsum form, as the reference's backward is XLA
-  recompute.
+- K5 ``_attention_kernel`` becomes ``flash_attention``, routed by the
+  same function: bf16 with ``head_dim`` 64 and ``L <= 64`` (the query
+  encode's L=30) takes ``csrc/attention_infer.cu`` (a warp per (b, h)
+  row, rows padded to 32 or 64, ``mma.sync`` with the row in registers);
+  ``64 < L <= 256`` takes the sm90 forward at p=0 without segments or
+  residual; the rest takes the tiled forward of ``csrc/attention.cu``.
+  Its backward recomputes through the plain einsum form, as the
+  reference's backward is XLA recompute.
 
 Layout ``[B, L, H, D]`` at every public function, as in the reference.
 The kernels take bf16 or fp32, ``head_dim`` 32 or 64 and any ``L`` up to
@@ -50,8 +54,10 @@ MAX_LEN = 512
 LAUNCHES = {"train_fwd": 0, "train_bwd": 0, "infer": 0}
 # the Hopper route's reach: bf16, head_dim 64, rows up to 256
 SM90_HEAD_DIM, SM90_MAX_LEN = 64, 256
+SHORT_MAX_LEN = 64  # K5's short-row kernel: bf16, head_dim 64, L <= 64
 ENTRY_LAUNCHES = {"attn_fwd_launch": 0, "attn_bwd_launch": 0,
-                  "attn_fwd_sm90_launch": 0, "attn_bwd_sm90_launch": 0}
+                  "attn_fwd_sm90_launch": 0, "attn_bwd_sm90_launch": 0,
+                  "attn_infer_short_launch": 0}
 
 _M32 = 0xFFFFFFFF
 # the reference's int32 constants -1028477379 and -2048144789 as uint32
@@ -284,13 +290,16 @@ def _ptr(t):
 
 
 def _kernel_route(dtype, length: int, head_dim: int, name: str) -> str:
-    """The CUDA kernels a launch takes, by dtype and shape alone: "sm90"
-    (``csrc/attention_sm90.cu``) for bf16 training launches with head_dim
-    64 and L <= 256; "tiled" (``csrc/attention.cu``) for everything else:
-    fp32, head_dim 32, 256 < L <= 512, and K5 (``name == "infer"``)."""
-    if (name != "infer" and dtype == torch.bfloat16
-            and head_dim == SM90_HEAD_DIM and length <= SM90_MAX_LEN):
-        return "sm90"
+    """The CUDA kernels a launch takes, by dtype and shape alone, for bf16
+    with head_dim 64: "short" (``csrc/attention_infer.cu``) for K5
+    (``name == "infer"``) with L <= 64; "sm90" (``csrc/attention_sm90.cu``)
+    for the rest with L <= 256. "tiled" (``csrc/attention.cu``) for
+    everything else: fp32, head_dim 32, 256 < L <= 512."""
+    if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM:
+        if name == "infer" and length <= SHORT_MAX_LEN:
+            return "short"
+        if length <= SM90_MAX_LEN:
+            return "sm90"
     return "tiled"
 
 
@@ -316,7 +325,16 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
                          device=q.device) if with_stats else None)
     ov = None
     inv, _, scale, _ = _scalars(float(dropout_p), d, q.dtype)
-    if _kernel_route(q.dtype, length, d, name) == "sm90":
+    route = _kernel_route(q.dtype, length, d, name)
+    if route == "short":  # K5 only: p=0, no segments, no residual
+        _aligned(name, q, k, v, out)
+        entry = "attn_infer_short_launch"
+        _build.launch(
+            "attention_infer", entry,
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, length, h, scale, device=q.device)
+    elif route == "sm90":
         if with_stats:
             ov = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         _aligned(name, q, k, v, out, ov)

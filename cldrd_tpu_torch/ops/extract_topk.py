@@ -2,10 +2,16 @@
 
 Replaces the TPU kernel ``cldrd_tpu/search/mips.py::_extract_kernel_factory``
 (launched by ``_binmax_segment_extract``), the production path of exact
-search. The CUDA kernel is ``csrc/extract_topk.cu``; on an H100 it is bound
-by its tensor-core operations (2*B*N*D), about 7.0 ms at B=512 over the
-8,847,360-row int8 store, and its design keeps the ``[B, N]`` scores out of
-device memory (see the note there). ``extract_topk_plain`` is the plain
+search. Two CUDA kernels compute it, picked by ``kernel_route`` from dtype
+and shape alone: ``csrc/extract_topk_sm90.cu`` (wgmma, resident queries,
+selection in registers) takes bf16 queries against bf16 or int8 stores with
+128-row bins, ``D`` a multiple of 128 up to 768 and batches that are
+multiples of 64, which is every launch of the main path;
+``csrc/extract_topk.cu`` takes the rest (other bin sizes, fp32 operands,
+other widths). On an H100 both are bound by their tensor-core operations
+(2*B*N*D), about 7.0 ms at B=512 over the 8,847,360-row int8 store, and
+both keep the ``[B, N]`` scores out of device memory (see the notes
+there). ``extract_topk_plain`` is the plain
 PyTorch version: the CPU path, and what the kernel is held to on the card.
 
 For each 2048-row super-block and query, with R level-1 rounds and R2
@@ -35,6 +41,9 @@ from . import _build
 from .fused_binmax import block_scores
 
 LAUNCHES = 0  # kernel launches through extract_topk()
+# launches by C entry point (the route each took)
+ENTRY_LAUNCHES = {"extract_topk_launch": 0, "extract_topk_sm90_launch": 0}
+SM90_BIN_ROWS, SM90_MAX_DIM = 128, 768
 
 SUPER_ROWS = 2048
 NEG_INF = float("-inf")
@@ -88,6 +97,20 @@ def extract_topk_plain(queries, corpus, row_ids, rounds: int, rounds2: int,
     return out_v, out_p, out_r
 
 
+def kernel_route(q_dtype, c_dtype, bz: int, d: int, bin_rows: int) -> str:
+    """The CUDA kernel a launch takes, by dtype and shape alone: "sm90"
+    (``csrc/extract_topk_sm90.cu``) for bf16 queries against a bf16 or
+    int8 store with 128-row bins, ``d`` a multiple of 128 up to 768 and a
+    batch that is a multiple of 64; "generic" (``csrc/extract_topk.cu``)
+    for everything else."""
+    if (q_dtype == torch.bfloat16
+            and c_dtype in (torch.bfloat16, torch.int8)
+            and bin_rows == SM90_BIN_ROWS and d % 128 == 0
+            and d <= SM90_MAX_DIM and bz % 64 == 0):
+        return "sm90"
+    return "generic"
+
+
 def extract_topk(queries: torch.Tensor, corpus: torch.Tensor,
                  row_ids: torch.Tensor, rounds: int, rounds2: int,
                  bin_rows: int = 128, scales: Optional[torch.Tensor] = None
@@ -123,17 +146,23 @@ def extract_topk(queries: torch.Tensor, corpus: torch.Tensor,
     out_v = torch.empty((bz, nsup, rounds2), dtype=torch.float32, device=dev)
     out_p = torch.empty((bz, nsup, rounds2), dtype=torch.int32, device=dev)
     out_r = torch.empty((bz, nsup), dtype=torch.float32, device=dev)
-    _build.launch(
-        "extract_topk", "extract_topk_launch",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int],
-        queries.data_ptr(), _build.dtype_code(queries.dtype),
-        corpus.data_ptr(), _build.dtype_code(corpus.dtype),
-        row_ids.data_ptr(), None if scales is None else scales.data_ptr(),
-        out_v.data_ptr(), out_p.data_ptr(), out_r.data_ptr(), bz, nsup, d,
-        rounds, rounds2, bin_rows, device=dev)
+    ptrs = (queries.data_ptr(), _build.dtype_code(queries.dtype),
+            corpus.data_ptr(), _build.dtype_code(corpus.dtype),
+            row_ids.data_ptr(), None if scales is None else scales.data_ptr(),
+            out_v.data_ptr(), out_p.data_ptr(), out_r.data_ptr(), bz, nsup,
+            d, rounds, rounds2)
+    types = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    if kernel_route(queries.dtype, corpus.dtype, bz, d, bin_rows) == "sm90":
+        entry = "extract_topk_sm90_launch"
+        _build.launch("extract_topk_sm90", entry, types, *ptrs, device=dev)
+    else:
+        entry = "extract_topk_launch"
+        _build.launch("extract_topk", entry, types + [ctypes.c_int], *ptrs,
+                      bin_rows, device=dev)
+    ENTRY_LAUNCHES[entry] += 1
     global LAUNCHES
     LAUNCHES += 1
     return out_v, out_p, out_r

@@ -243,7 +243,15 @@ def test_wrappers_route_by_device():
     (torch.bfloat16, 512, 64, "train_bwd", "tiled"),
     (torch.float32, 256, 64, "train_fwd", "tiled"),
     (torch.bfloat16, 256, 32, "train_bwd", "tiled"),
-    (torch.bfloat16, 30, 64, "infer", "tiled"),       # K5 keeps its kernel
+    (torch.bfloat16, 30, 64, "infer", "short"),       # the query encode
+    (torch.bfloat16, 1, 64, "infer", "short"),
+    (torch.bfloat16, 64, 64, "infer", "short"),
+    (torch.bfloat16, 65, 64, "infer", "sm90"),        # K5 on sm90 at p=0
+    (torch.bfloat16, 256, 64, "infer", "sm90"),
+    (torch.bfloat16, 257, 64, "infer", "tiled"),
+    (torch.float32, 30, 64, "infer", "tiled"),
+    (torch.bfloat16, 30, 32, "infer", "tiled"),
+    (torch.bfloat16, 64, 64, "train_fwd", "sm90"),    # short is K5's only
 ])
 def test_kernel_route_by_dtype_and_shape(dtype, length, d, name, route):
     """Which CUDA kernels a launch takes is a function of dtype, head_dim,

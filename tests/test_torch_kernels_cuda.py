@@ -486,3 +486,216 @@ def test_route_boundary_by_launch_name(dtype, length, d, route):
         assert after[direction + suffix] == before[direction + suffix] + 1
         assert after[direction + other] == before[direction + other]
     assert att._kernel_route(dtype, length, d, "train_fwd") == route
+
+
+# --------------------------------------------- K1 on Hopper (sm90 route)
+
+
+def _adversarial_store(dev, n, c_dtype, seed):
+    """Integer-valued rows with many equal scores: every code in {-1, 0,
+    1}, whole runs of duplicated rows, one bin of padding (id -1, its
+    rounds exhaust to -inf) and one bin with a single real row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.randint(-1, 2, (n, 768), generator=g, device=dev,
+                      dtype=torch.int8)
+    c[256:384] = c[256]            # a bin of one row, 128 times
+    c[1000:1100] = c[999]          # duplicates across two bins
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids[2048:2176] = -1            # a padded bin
+    ids[4096:4223] = -1            # a bin with one real row (4223)
+    ids[-300:] = -1
+    scales = None
+    if c_dtype == torch.int8:      # scales in {1, 2}: products stay exact
+        scales = torch.randint(1, 3, (n,), generator=g, device=dev).float()
+    else:
+        c = c.to(c_dtype)
+    return c, ids, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bz", [64, 128, 512])
+@pytest.mark.parametrize("rounds,rounds2", [(2, 1), (7, 16), (5, 8),
+                                            (2, 16), (7, 1)])
+def test_extract_topk_sm90_equals_plain(c_dtype, bz, rounds, rounds2):
+    """The sm90 kernel EQUALS the plain version, values, positions and
+    rem1, on integer inputs with adversarial ties and padding, at the
+    edges of R (2, 7) and R2 (1, 16)."""
+    dev = _device()
+    n = 16 * 2048
+    c, ids, scales = _adversarial_store(dev, n, c_dtype, bz + rounds)
+    g = torch.Generator(device=dev).manual_seed(rounds2)
+    q = torch.randint(-1, 2, (bz, 768), generator=g, device=dev,
+                      dtype=torch.int8).to(torch.bfloat16)
+    q[1] = q[0]                    # equal queries
+    q[2] = 0                       # every score of a row equal
+    assert k1.kernel_route(q.dtype, c.dtype, bz, 768, 128) == "sm90"
+    before = k1.ENTRY_LAUNCHES["extract_topk_sm90_launch"]
+    got = k1.extract_topk(q, c, ids, rounds, rounds2, 128, scales)
+    ref = k1.extract_topk_plain(q, c, ids, rounds, rounds2, 128, scales)
+    torch.cuda.synchronize()
+    assert k1.ENTRY_LAUNCHES["extract_topk_sm90_launch"] == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", [torch.bfloat16, torch.int8])
+def test_extract_topk_sm90_is_deterministic_and_agrees_on_normal_data(
+        c_dtype):
+    """Normal data: values within 1e-5 of the largest score of the plain
+    version's (fp32 sums in another order); two launches give the same
+    bits."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(7)
+    n = 8 * 2048
+    q = torch.randn(128, 768, generator=g, device=dev).to(torch.bfloat16)
+    if c_dtype == torch.int8:
+        c = torch.randint(-127, 128, (n, 768), generator=g, device=dev,
+                          dtype=torch.int8)
+        scales = torch.rand(n, generator=g, device=dev) / 127
+    else:
+        c = torch.randn(n, 768, generator=g, device=dev).to(c_dtype)
+        scales = None
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    runs = [k1.extract_topk(q, c, ids, 5, 8, 128, scales) for _ in range(2)]
+    ref = k1.extract_topk_plain(q, c, ids, 5, 8, 128, scales)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for a, b in ((runs[0][0], ref[0]), (runs[0][2], ref[2])):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,c_dtype,bz,d,bin_rows,entry", [
+    (torch.bfloat16, torch.int8, 128, 768, 128, "extract_topk_sm90_launch"),
+    (torch.bfloat16, torch.bfloat16, 64, 256, 128,
+     "extract_topk_sm90_launch"),
+    (torch.bfloat16, torch.int8, 128, 768, 64, "extract_topk_launch"),
+    (torch.bfloat16, torch.bfloat16, 128, 768, 256, "extract_topk_launch"),
+    (torch.float32, torch.float32, 128, 768, 128, "extract_topk_launch"),
+    (torch.bfloat16, torch.bfloat16, 128, 64, 128, "extract_topk_launch"),
+])
+def test_extract_topk_route_boundary_by_launch_name(q_dtype, c_dtype, bz, d,
+                                                   bin_rows, entry):
+    """Each launch goes through the C entry point kernel_route names, and
+    either route EQUALS the plain version on integer inputs."""
+    dev = _device()
+    q, c, ids, scales = _inputs(dev, bz, 4096, d, c_dtype, 11)
+    q = q.to(q_dtype)
+    before = dict(k1.ENTRY_LAUNCHES)
+    got = k1.extract_topk(q, c, ids, 5, 8, bin_rows, scales)
+    ref = k1.extract_topk_plain(q, c, ids, 5, 8, bin_rows, scales)
+    torch.cuda.synchronize()
+    for name, count in k1.ENTRY_LAUNCHES.items():
+        assert count == before[name] + (name == entry)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------ K5 on Hopper (short and sm90)
+
+
+def _query_tower_mask(dev, b, length, g):
+    """Most keys padded, as the query tower's rows are (1 to L/3 + 1 real
+    tokens), and row 1 fully masked (the reference then gives 1/L)."""
+    n = torch.randint(1, length // 3 + 2, (b, 1), generator=g, device=dev)
+    mask = (torch.arange(length, device=dev)[None] < n).int()
+    mask[1] = 0
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 17, 30, 32, 64])
+def test_infer_short_equals_plain(length):
+    """bf16 K5 at L <= 64 takes the short-row kernel; out within 2e-2 of
+    the largest magnitude (one bf16 ulp of a probability near 1)."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(length)
+    q, k, v = (torch.randn(96, length, 12, 64, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = _query_tower_mask(dev, 96, length, g)
+    before = att.ENTRY_LAUNCHES["attn_infer_short_launch"]
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert att.ENTRY_LAUNCHES["attn_infer_short_launch"] == before + 1
+    assert _rel(out, ref) <= 2e-2
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["q0", "k0"])
+@pytest.mark.parametrize("b,length", [(512, 30), (8, 64), (8, 17)])
+def test_infer_short_is_exact_on_exact_inputs(form, b, length):
+    """Every score of a row equal (q = 0 and k one-hot, or q one-hot and
+    every key e_0), v one-hot over keys, the query tower's padding and a
+    fully masked row: each probability is 1/l rounded once, so out must
+    EQUAL the plain version."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(b + length)
+    shape = (b, length, 12, 64)
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % 64 == torch.arange(64, device=dev)[None, :])
+    hot = hot[None, :, None, :].expand(shape).to(torch.bfloat16).contiguous()
+    zero = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    if form == "q0":
+        q, k = zero, hot
+    else:
+        q, k = hot, zero.clone()
+        k[..., 0] = 1
+    mask = _query_tower_mask(dev, b, length, g)
+    out = att.flash_attention(q, k, hot, mask)
+    ref = att.attention_plain(q, k, hot, mask)
+    torch.cuda.synchronize()
+    assert ref.abs().max() > 0
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [65, 100, 256])
+def test_infer_sm90_route_equals_plain(length):
+    """bf16 K5 at 64 < L <= 256 takes the sm90 forward at p = 0 (no
+    segments, no residual): within 2e-2 of the plain version, EQUAL on
+    exact inputs."""
+    dev = _device()
+    q, k, v, _, mask, _ = _attn_inputs(dev, 16, length, 12, 64,
+                                       torch.bfloat16, False, 4)
+    mask = _query_tower_mask(dev, 16, length,
+                             torch.Generator(device=dev).manual_seed(3))
+    before = att.ENTRY_LAUNCHES["attn_fwd_sm90_launch"]
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    zq = torch.zeros_like(q)
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % 64 == torch.arange(64, device=dev)[None, :])
+    hot = hot[None, :, None, :].expand(q.shape).to(q.dtype).contiguous()
+    out_x = att.flash_attention(zq, k, hot, mask)
+    ref_x = att.attention_plain(zq, k, hot, mask)
+    torch.cuda.synchronize()
+    assert att.ENTRY_LAUNCHES["attn_fwd_sm90_launch"] == before + 2
+    assert _rel(out, ref) <= 2e-2
+    assert torch.equal(out_x, ref_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,length,d,entry", [
+    (torch.bfloat16, 64, 64, "attn_infer_short_launch"),
+    (torch.bfloat16, 65, 64, "attn_fwd_sm90_launch"),
+    (torch.bfloat16, 256, 64, "attn_fwd_sm90_launch"),
+    (torch.bfloat16, 257, 64, "attn_fwd_launch"),
+    (torch.float32, 30, 64, "attn_fwd_launch"),
+    (torch.bfloat16, 30, 32, "attn_fwd_launch"),
+])
+def test_infer_route_boundary_by_launch_name(dtype, length, d, entry):
+    """K5 launches go through the C entry point _kernel_route names."""
+    dev = _device()
+    q, k, v, _, mask, _ = _attn_inputs(dev, 2, length, 4, d, dtype, False)
+    before = dict(att.ENTRY_LAUNCHES)
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    for name, count in att.ENTRY_LAUNCHES.items():
+        assert count == before[name] + (name == entry)
+    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 2e-2)

@@ -349,3 +349,51 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         k1.extract_topk(meta, meta, ids, 3, 8)
     with pytest.raises(ValueError):
         k2.fused_binmax(meta, meta, ids, 128)
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype,bz,d,bin_rows,route", [
+    (torch.bfloat16, torch.int8, 512, 768, 128, "sm90"),   # 8.8M int8
+    (torch.bfloat16, torch.bfloat16, 512, 768, 128, "sm90"),
+    (torch.bfloat16, torch.int8, 64, 768, 128, "sm90"),
+    (torch.bfloat16, torch.bfloat16, 1024, 128, 128, "sm90"),
+    (torch.bfloat16, torch.int8, 96, 768, 128, "generic"),  # not 64k
+    (torch.bfloat16, torch.int8, 512, 768, 64, "generic"),  # other bins
+    (torch.bfloat16, torch.int8, 512, 768, 256, "generic"),
+    (torch.bfloat16, torch.float32, 512, 768, 128, "generic"),
+    (torch.float32, torch.float32, 512, 768, 128, "generic"),
+    (torch.float32, torch.int8, 512, 768, 128, "generic"),
+    (torch.bfloat16, torch.int8, 512, 832, 128, "generic"),  # D % 128
+    (torch.bfloat16, torch.int8, 512, 896, 128, "generic"),  # D > 768
+    (torch.bfloat16, torch.int8, 512, 32, 128, "generic"),
+])
+def test_k1_kernel_route_by_dtype_and_shape(q_dtype, c_dtype, bz, d,
+                                            bin_rows, route):
+    """Which K1 kernel a launch takes is a function of dtypes, batch,
+    width and bin size alone, pinned here without a card."""
+    assert k1.kernel_route(q_dtype, c_dtype, bz, d, bin_rows) == route
+
+
+@pytest.mark.parametrize("hbm_dtype,n,nq,batch", [
+    (torch.int8, 8_847_360, 512, 512),      # the search phase, int8
+    (torch.bfloat16, 1_048_576, 512, 512),  # the search phase, bf16
+    (torch.bfloat16, 32_768, 1024, 512),    # the pipeline's retrieve
+    (torch.int8, 32_768, 1000, 512),        # a ragged last batch
+    (torch.int8, 1_048_576, 5, 128),        # a flat daemon's request
+])
+def test_every_main_path_k1_launch_takes_sm90(hbm_dtype, n, nq, batch):
+    """The batches FlatIPIndex makes (padded to multiples of 128) at the
+    main path's widths and stores reach the extract route and, through
+    it, the sm90 kernel: the query dtype is the index's, the bin size is
+    the one topk_binmax settles on."""
+    from cldrd_tpu_torch.index.flat_index import query_dtype_for
+
+    q_dtype = query_dtype_for(hbm_dtype, "default")
+    bin_rows = 128
+    while bin_rows > 8 and n % bin_rows:
+        bin_rows //= 2
+    batch = -(-batch // 128) * 128
+    for b in range(0, nq, batch):
+        bz = -(-min(batch, nq - b) // 128) * 128
+        assert mips._extract_eligible(bz, n, bin_rows)
+        assert k1.kernel_route(q_dtype, hbm_dtype, bz, 768,
+                               bin_rows) == "sm90"
