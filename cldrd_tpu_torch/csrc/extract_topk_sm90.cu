@@ -40,7 +40,9 @@
 //   (On integer-valued inputs every order gives the same bits.)
 // - The block's 64 queries (96 KB at D=768) stay resident in shared
 //   memory for the whole super-block: they are read once per block, not
-//   once per 128-row tile.
+//   once per 128-row tile, with every 4-byte copy in flight at once.
+// - Level 2 gives each query a group of 8 lanes, so a warp runs four
+//   queries' rounds side by side rather than one after another.
 // - Two consumer warpgroups take alternate bins of the super-block. Each
 //   streams its bin (two 64-row accumulators) through 64-deep chunks,
 //   with the loads of the chunks two steps ahead in flight in registers
@@ -66,14 +68,13 @@
 #include <stdint.h>
 
 #include "score_tile.cuh"   // DType, allow_dynamic_smem, MAX_DEVICES
-#include "topk_select.cuh"  // better, level2
+#include "topk_select.cuh"  // better, group_best
 
 namespace cldrd_k1_90 {
 
 using bf16 = __nv_bfloat16;
 using cldrd::allow_dynamic_smem;
 using cldrd::better;
-using cldrd::level2;
 using cldrd::MAX_DEVICES;
 
 constexpr int SUP_ROWS = 2048;
@@ -100,9 +101,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
-__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void fence_async_smem() {
@@ -280,6 +281,45 @@ __device__ __forceinline__ void best32(const float (&v)[32], float& bv,
   bu = ia[0];
 }
 
+// Level 2 over a query's n <= 96 buffered candidates by a group of 8
+// lanes (gl its lane), as topk_select.cuh's level2 does it by a warp:
+// `rounds` rounds of best (value desc, position asc), then mask every
+// copy of that position; exhausted rounds re-emit the lowest position
+// with -inf. Lane 0 of the group writes round r's pick to v[r], p[r].
+__device__ __forceinline__ void level2_group(const float* cv, const int* cp,
+                                             int n, int rounds, int gl,
+                                             float* v_out, int* p_out) {
+  constexpr int G = 8, PER = 96 / G;
+  float v[PER];
+  int p[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int idx = gl + G * j;
+    v[j] = idx < n ? cv[idx] : -INFINITY;
+    p[j] = idx < n ? cp[idx] : INT_MAX;
+  }
+  for (int rr = 0; rr < rounds; ++rr) {
+    float bv = v[0];
+    int bp = p[0];
+#pragma unroll
+    for (int j = 1; j < PER; ++j)
+      if (better(v[j], p[j], bv, bp)) {
+        bv = v[j];
+        bp = p[j];
+      }
+    cldrd::group_best<G>(bv, bp);
+    if (gl == 0) {
+      v_out[rr] = bv;
+      p_out[rr] = bp;
+    }
+    // positions may repeat (an exhausted bin re-emits its lowest row):
+    // masking by position removes every copy
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (p[j] == bp) v[j] = -INFINITY;
+  }
+}
+
 // ----------------------------------------------------------------- kernel
 
 template <typename CT>
@@ -332,18 +372,15 @@ extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
 
   // the block's queries, resident, in the chunks' permuted depth order:
   // logical column l of chunk k of query r holds element 64k +
-  // chunk_position(l), at sQ + k * Q_TILE, 16-byte group l / 8 swizzled
-  for (int i = tid; i < QB * NC * 8; i += THREADS) {
-    const int r = i / (NC * 8), k = (i / 8) % NC, grp = i % 8;
-    const bf16* src = q + (long long)(q0 + r) * D + k * KC;
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)  // columns 8 grp + 2e, + 1: one pair
-      w[e] = __ldg(reinterpret_cast<const uint32_t*>(
-          src + chunk_position(8 * grp + 2 * e)));
-    st_shared16(sQ + k * Q_TILE + swz(r, grp),
-                make_uint4(w[0], w[1], w[2], w[3]));
+  // chunk_position(l), at sQ + k * Q_TILE, 16-byte group l / 8 swizzled;
+  // one 4-byte copy per column pair, all in flight at once
+  for (int i = tid; i < QB * NC * 32; i += THREADS) {
+    const int r = i / (NC * 32), k = (i / 32) % NC, l = 2 * (i % 32);
+    cp_async4(sQ + k * Q_TILE + swz(r, l >> 3) + 2 * (l & 7),
+              q + (long long)(q0 + r) * D + k * KC + chunk_position(l));
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   fence_async_smem();
   __syncthreads();
 
@@ -463,18 +500,17 @@ extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
   }
   __syncthreads();
 
-  // level 2 over each query's 16 * m candidates: warp w of 8 takes 8
-  for (int qq = 0; qq < QB / 8; ++qq) {
-    const int ql = (tid >> 5) * (QB / 8) + qq;
-    float ov;
-    int op;
-    level2(cand_v + ql * CL, cand_p + ql * CL, CL, rounds2, ov, op);
+  // level 2 over each query's 16 * m candidates: a query per group of 8
+  // lanes (12 candidates a lane), four queries of a warp side by side,
+  // warp w of 8 taking queries 8w .. 8w + 7 in two passes
+  const int gi = lane >> 3, gl = lane & 7;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    const int ql = (tid >> 5) * 8 + pass * 4 + gi;
     const long long row = (long long)(q0 + ql) * nsup + sup;
-    if (lane < rounds2) {
-      out_v[row * rounds2 + lane] = ov;
-      out_p[row * rounds2 + lane] = op;
-    }
-    if (lane == 0) out_rem[row] = fmaxf(s_rem[ql], s_rem[QB + ql]);
+    level2_group(cand_v + ql * CL, cand_p + ql * CL, CL, rounds2, gl,
+                 out_v + row * rounds2, out_p + row * rounds2);
+    if (gl == 0) out_rem[row] = fmaxf(s_rem[ql], s_rem[QB + ql]);
   }
 }
 
