@@ -43,26 +43,29 @@
 //   once per 128-row tile, with every 4-byte copy in flight at once.
 // - Level 2 gives each query a group of 8 lanes, so a warp runs four
 //   queries' rounds side by side rather than one after another.
-// - Two consumer warpgroups take alternate bins of the super-block. Each
-//   streams its bin (two 64-row accumulators) through 64-deep chunks,
-//   with the loads of the chunks two steps ahead in flight in registers
-//   and two sets of A fragments, so a chunk's loads, widening and wgmma
-//   overlap the previous chunk's products; the other warpgroup's
-//   selection runs while this one's products do.
-// - The bin's fp32 scores (times the row scale, -inf for id < 0) go once
-//   to a query-major tile in shared memory, from which a lane quad reads
-//   a query's 128 rows: 32 values a thread, selected in registers. A
-//   round of level 1 takes a thread's best of 32 as a tree of depth 5 for
-//   both of its queries side by side, then the quad's best by two
-//   shuffles.
+// - Warp roles. Two wgmma warpgroups take alternate bins of the
+//   super-block; each streams its bin (two 64-row accumulators) through
+//   64-deep chunks, with the loads of the chunks two steps ahead (one
+//   for bf16 rows) in flight in registers and two sets of A fragments,
+//   so a chunk's loads, widening and wgmma overlap the previous chunk's
+//   products. A third
+//   warpgroup selects: each bin's fp32 scores (times the row scale, -inf
+//   for id < 0) go once to a query-major tile of its wgmma warpgroup,
+//   handed over by named barriers, and the selection reads a query's 128
+//   rows with a lane quad, 32 values a thread, while the wgmma
+//   warpgroups go on to their next bins. A round of level 1 takes a
+//   thread's best of 32 as a tree of depth 5 for both of its queries side
+//   by side, then the quad's best by two shuffles. setmaxnreg gives the
+//   wgmma warpgroups the registers the selection does not need.
 // - int8 codes widen with four byte permutes and two bf16x2 subtractions
 //   per four codes: (128 + low 7 bits) - (128 or 256 by the sign bit),
 //   exact, with no integer-to-float conversion.
 // - Adjacent blocks share a super-block, so the B/64 reads of a
 //   super-block fall close together in time and can hit in L2.
-// Shared memory: queries (D/64 tiles of 8 KB), 2 warpgroups x a 64 x 128
-// fp32 score tile, the level-1 candidates (64 queries x 16 x (R-1)
-// pairs), the remainder bounds: 214 KB at D=768 and R=7, one block an SM.
+// Shared memory: queries (D/64 tiles of 8 KB), 2 wgmma warpgroups x a
+// 64 x 128 fp32 score tile, the level-1 candidates (64 queries x 16 x
+// (R-1) pairs), the remainder bounds: 213 KB at D=768 and R=7, one block
+// an SM.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,7 +86,7 @@ constexpr int BINS = SUP_ROWS / BIN;      // 16
 constexpr int QB = 64;                    // queries per block
 constexpr int KC = 64;                    // depth of a chunk (128 bytes)
 constexpr int MAX_D = 768;                // resident queries: 96 KB
-constexpr int THREADS = 256;              // two consumer warpgroups
+constexpr int THREADS = 384;              // 2 wgmma + 1 selection warpgroup
 constexpr int NWG = 2;
 constexpr int Q_TILE = QB * 128;          // one chunk of the queries
 constexpr int S_LD = 136;                 // fp32 stride of a query's scores
@@ -108,9 +111,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
 }
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_barrier(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 // K-major operand under the 128-byte swizzle: stride byte offset 1024
 // (one 8-row atom), layout B128
@@ -186,6 +186,16 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
   hi = *reinterpret_cast<uint32_t*>(&r1);
 }
 
+// A copy the compiler cannot fold away: an A fragment must live in
+// registers of its own while a wgmma reads it, not in the registers of
+// the loads it came from, which the next chunk's loads overwrite (folded
+// copies gave wrong, run-to-run varying scores on the card)
+__device__ __forceinline__ uint32_t copy_reg(uint32_t x) {
+  uint32_t y;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // The depth permutation within a 64-deep chunk: a thread (t = lane % 4)
 // loads the chunk's 16 contiguous elements 16t .. 16t + 15 of a row, and
 // element 16t + 4s + j feeds k-step s of its A fragments at column
@@ -205,6 +215,7 @@ struct Chunk;
 template <>
 struct Chunk<int8_t> {  // one piece a row: codes 16t .. 16t + 15
   static constexpr int RAW = 4;
+  static constexpr int DEPTH = 2;  // chunks of loads in flight
   __device__ static void load(const int8_t* c, long long row0, int D, int k0,
                               int t, uint4 (&raw)[RAW]) {
 #pragma unroll
@@ -226,6 +237,7 @@ struct Chunk<int8_t> {  // one piece a row: codes 16t .. 16t + 15
 template <>
 struct Chunk<bf16> {  // two pieces a row: values 16t .. 16t + 15
   static constexpr int RAW = 8;
+  static constexpr int DEPTH = 1;  // with two, the wgmma warps spill
   __device__ static void load(const bf16* c, long long row0, int D, int k0,
                               int t, uint4 (&raw)[RAW]) {
 #pragma unroll
@@ -243,8 +255,8 @@ struct Chunk<bf16> {  // two pieces a row: values 16t .. 16t + 15
                              raw[2 * i + 1].z, raw[2 * i + 1].w};
 #pragma unroll
       for (int s = 0; s < 4; ++s) {  // words 2s, 2s + 1: values 4s .. 4s + 3
-        a[((i >> 1) * 4 + s) * 4 + (i & 1)] = w[2 * s];
-        a[((i >> 1) * 4 + s) * 4 + 2 + (i & 1)] = w[2 * s + 1];
+        a[((i >> 1) * 4 + s) * 4 + (i & 1)] = copy_reg(w[2 * s]);
+        a[((i >> 1) * 4 + s) * 4 + 2 + (i & 1)] = copy_reg(w[2 * s + 1]);
       }
     }
   }
@@ -322,6 +334,21 @@ __device__ __forceinline__ void level2_group(const float* cv, const int* cp,
 
 // ----------------------------------------------------------------- kernel
 
+// Warp roles: warpgroups 0 and 1 stream bins through wgmma (bin 2 it + w)
+// and write each bin's scores to their own tile; warpgroup 2 selects from
+// the two tiles in turn. Named barriers hand a tile over: FULL(w) when
+// its scores are written, FREE(w) when the selection has read them. The
+// register file is split 192 / 192 / 120 (setmaxnreg; 504 of the 512 a
+// thread slot may take, leaving the allocator slack).
+constexpr int MMA_REGS = 192, SEL_REGS = 120;
+constexpr int BAR_FREE = 1, BAR_FULL = 3;  // + w; 0 is __syncthreads
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
 template <typename CT>
 __global__ void __launch_bounds__(THREADS, 1)
 extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
@@ -332,7 +359,7 @@ extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
                          int m, int rounds2) {
   using CH = Chunk<CT>;
   constexpr int RAW = CH::RAW;
-  constexpr int DEPTH = 2;  // chunks of loads in flight
+  constexpr int DEPTH = CH::DEPTH;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023u) & ~1023u;  // swizzle atoms: 1 KB
@@ -352,23 +379,6 @@ extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             t = lane & 3;
-  float* S = s_tile + wg * QB * S_LD;  // this warpgroup's [query][row]
-
-  // this warpgroup's stream of (bin, chunk) steps: bin 2 * it + wg, chunk
-  // k; the loads of the step DEPTH ahead are in flight in registers
-  int f_it = 0, f_k = 0;  // the next step to fetch
-  auto fetch = [&](uint4 (&dst)[RAW]) {
-    if (f_it < BINS / NWG)
-      CH::load(c, sup * SUP_ROWS + (2 * f_it + wg) * BIN + 16 * warp + g, D,
-               f_k * KC, t, dst);
-    if (++f_k == NC) {
-      f_k = 0;
-      ++f_it;
-    }
-  };
-  uint4 raw[DEPTH][RAW];
-#pragma unroll
-  for (int j = 0; j < DEPTH; ++j) fetch(raw[j]);
 
   // the block's queries, resident, in the chunks' permuted depth order:
   // logical column l of chunk k of query r holds element 64k +
@@ -384,139 +394,167 @@ extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
   fence_async_smem();
   __syncthreads();
 
-  float acc[2][32];  // the bin's two 64-row halves x 64 queries
-  uint32_t a[2][32];  // A fragments of two chunks in flight
-  float rem[2] = {-INFINITY, -INFINITY};
-  for (int it = 0; it < BINS / NWG; ++it) {
-    const int bin = 2 * it + wg;
-    const long long r0 = sup * SUP_ROWS + (long long)bin * BIN;
-    // the thread's four rows of the bin: 64 half + 16 warp + g + 8 x
-    float sc[4];
-    bool ok[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long r = r0 + 64 * (i >> 1) + 16 * warp + g + 8 * (i & 1);
-      ok[i] = __ldg(ids + r) >= 0;
-      sc[i] = scales != nullptr ? __ldg(scales + r) : 1.f;
-    }
-    // chunk k: widen its loads into A fragment set k & 1, put the loads of
-    // the step DEPTH ahead in flight, then its eight wgmma; the chunk
-    // before is done after them (its fragment set is free)
-    for (int k0 = 0; k0 < NC; k0 += DEPTH) {
-#pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
-        const int k = k0 + j;
-        CH::to_a(raw[j], a[j & 1]);
-        fetch(raw[j]);
-        wg_fence();
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int st = 0; st < KC / 16; ++st)
-            mma_rs_n64(acc[h], &a[j & 1][(h * 4 + st) * 4],
-                       sdesc(sQ + k * Q_TILE + st * 32), (k | st) != 0);
-        wg_commit();
-        wg_wait<1>();
-        fence_regs(a[(j + 1) & 1]);  // the chunk before is done with them
+  if (wg < NWG) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MMA_REGS));
+    float* S = s_tile + wg * QB * S_LD;  // this warpgroup's [query][row]
+    // the stream of (bin, chunk) steps: bin 2 * it + wg, chunk k; the
+    // loads of the step DEPTH ahead are in flight in registers
+    int f_it = 0, f_k = 0;  // the next step to fetch
+    auto fetch = [&](uint4 (&dst)[RAW]) {
+      if (f_it < BINS / NWG)
+        CH::load(c, sup * SUP_ROWS + (2 * f_it + wg) * BIN + 16 * warp + g,
+                 D, f_k * KC, t, dst);
+      if (++f_k == NC) {
+        f_k = 0;
+        ++f_it;
       }
-    }
-    wg_wait<0>();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
-    fence_regs(a[0]);
-    fence_regs(a[1]);
+    };
+    uint4 raw[DEPTH][RAW];
+#pragma unroll
+    for (int j = 0; j < DEPTH; ++j) fetch(raw[j]);
 
-    // the bin's scores, query-major: S[query][row], then a lane quad per
-    // query (rows g and g + 8 of the warp's 16 queries)
-    wg_barrier(wg);  // the last bin's reads are done
+    float acc[2][32];   // the bin's two 64-row halves x 64 queries
+    uint32_t a[2][32];  // A fragments of two chunks in flight
+    for (int it = 0; it < BINS / NWG; ++it) {
+      const long long r0 = sup * SUP_ROWS + (long long)(2 * it + wg) * BIN;
+      // the thread's four rows of the bin: 64 half + 16 warp + g + 8 x
+      float sc[4];
+      bool ok[4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int x = (i >> 1) & 1;
-        const int row = 64 * h + 16 * warp + g + 8 * x;
-        const int qn = 8 * (i >> 2) + 2 * t + (i & 1);
-        S[qn * S_LD + row] =
-            ok[2 * h + x] ? acc[h][i] * sc[2 * h + x] : -INFINITY;
+      for (int i = 0; i < 4; ++i) {
+        const long long r = r0 + 64 * (i >> 1) + 16 * warp + g + 8 * (i & 1);
+        ok[i] = __ldg(ids + r) >= 0;
+        sc[i] = scales != nullptr ? __ldg(scales + r) : 1.f;
       }
-    wg_barrier(wg);
+      // chunk k: widen its loads into A fragment set k & 1, put the loads
+      // of the step DEPTH ahead in flight, then its eight wgmma; the chunk
+      // before is done after them (its fragment set is free)
+      for (int k0 = 0; k0 < NC; k0 += 2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = k0 + j;
+          CH::to_a(raw[j % DEPTH], a[j & 1]);
+          fetch(raw[j % DEPTH]);
+          wg_fence();
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int st = 0; st < KC / 16; ++st)
+              mma_rs_n64(acc[h], &a[j & 1][(h * 4 + st) * 4],
+                         sdesc(sQ + k * Q_TILE + st * 32), (k | st) != 0);
+          wg_commit();
+          wg_wait<1>();
+          fence_regs(a[(j + 1) & 1]);  // the chunk before is done with them
+        }
+      }
+      wg_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      fence_regs(a[0]);
+      fence_regs(a[1]);
 
-    // level 1 for the thread's two queries side by side: u = 2 j + e is
-    // row 8 j + 2 t + e of the bin
-    float v[2][32];
+      // the bin's scores, query-major: S[query][row]
+      bar_sync(BAR_FREE + wg);  // the selection has read the last bin
 #pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      const float* src = S + (warp * 16 + g + 8 * x) * S_LD + 2 * t;
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        const float2 p2 = *reinterpret_cast<const float2*>(src + 8 * jj);
-        v[x][2 * jj] = p2.x;
-        v[x][2 * jj + 1] = p2.y;
-      }
+        for (int i = 0; i < 32; ++i) {
+          const int x = (i >> 1) & 1;
+          const int row = 64 * h + 16 * warp + g + 8 * x;
+          const int qn = 8 * (i >> 2) + 2 * t + (i & 1);
+          S[qn * S_LD + row] =
+              ok[2 * h + x] ? acc[h][i] * sc[2 * h + x] : -INFINITY;
+        }
+      __threadfence_block();  // the scores are visible before the hand-over
+      bar_arrive(BAR_FULL + wg);
     }
-    for (int rr = 0; rr <= m; ++rr) {
-      float bv[2];
-      int bu[2], own[2], row[2];
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
+    // level 1, bin by bin, for the thread's two queries (rows g and g + 8
+    // of the warp's 16) side by side: u = 2 j + e is row 8 j + 2 t + e
+    float rem[2] = {-INFINITY, -INFINITY};
+    bar_arrive(BAR_FREE);  // both tiles start free
+    bar_arrive(BAR_FREE + 1);
+    for (int bin = 0; bin < BINS; ++bin) {
+      const int w = bin & 1;
+      const float* S = s_tile + w * QB * S_LD;
+      bar_sync(BAR_FULL + w);
+      float v[2][32];
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
-        best32(v[x], bv[x], bu[x]);
-        own[x] = row[x] = 8 * (bu[x] >> 1) + 2 * t + (bu[x] & 1);
-      }
+        const float* src = S + (warp * 16 + g + 8 * x) * S_LD + 2 * t;
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1)
+        for (int jj = 0; jj < 16; ++jj) {
+          const float2 p2 = *reinterpret_cast<const float2*>(src + 8 * jj);
+          v[x][2 * jj] = p2.x;
+          v[x][2 * jj + 1] = p2.y;
+        }
+      }
+      const int r0 = (int)(sup * SUP_ROWS) + bin * BIN;
+      for (int rr = 0; rr <= m; ++rr) {
+        float bv[2];
+        int bu[2], own[2], row[2];
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv[x], off);
-          const int orow = __shfl_xor_sync(0xffffffffu, row[x], off);
-          if (better(ov, orow, bv[x], row[x])) {
-            bv[x] = ov;
-            row[x] = orow;
+          best32(v[x], bv[x], bu[x]);
+          own[x] = row[x] = 8 * (bu[x] >> 1) + 2 * t + (bu[x] & 1);
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const float ov = __shfl_xor_sync(0xffffffffu, bv[x], off);
+            const int orow = __shfl_xor_sync(0xffffffffu, row[x], off);
+            if (better(ov, orow, bv[x], row[x])) {
+              bv[x] = ov;
+              row[x] = orow;
+            }
           }
+        if (rr == m) {  // the R-th max bounds everything left in the bin
+#pragma unroll
+          for (int x = 0; x < 2; ++x) rem[x] = fmaxf(rem[x], bv[x]);
+          break;
         }
-      if (rr == m) {  // the R-th max bounds everything left in the bin
 #pragma unroll
-        for (int x = 0; x < 2; ++x) rem[x] = fmaxf(rem[x], bv[x]);
-        break;
-      }
+        for (int x = 0; x < 2; ++x) {
+          const int ql = warp * 16 + g + 8 * x;
+          if (t == 0) {
+            cand_v[ql * CL + bin * m + rr] = bv[x];
+            cand_p[ql * CL + bin * m + rr] = r0 + row[x];  // segment row
+          }
+          // the quad's pick is this thread's own best: take it out
+          const bool mine = own[x] == row[x];
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int ql = warp * 16 + g + 8 * x;
-        if (t == 0) {
-          cand_v[ql * CL + bin * m + rr] = bv[x];
-          cand_p[ql * CL + bin * m + rr] = (int)r0 + row[x];  // segment row
+          for (int u = 0; u < 32; ++u)
+            v[x][u] = mine && u == bu[x] ? -INFINITY : v[x][u];
         }
-        // the quad's pick is this thread's own best: take it out
-        const bool mine = own[x] == row[x];
-#pragma unroll
-        for (int u = 0; u < 32; ++u)
-          v[x][u] = mine && u == bu[x] ? -INFINITY : v[x][u];
       }
+      // the tile is free once its values are used, so its reads are done
+      // (an arrive right after the loads let the next bin's writes
+      // overtake them); the last two tiles are never refilled
+      if (bin < BINS - NWG) bar_arrive(BAR_FREE + w);
     }
-  }
-  if (t == 0) {
+    if (t == 0) {
 #pragma unroll
-    for (int x = 0; x < 2; ++x)
-      s_rem[wg * QB + warp * 16 + g + 8 * x] = rem[x];
+      for (int x = 0; x < 2; ++x) s_rem[warp * 16 + g + 8 * x] = rem[x];
+    }
   }
   __syncthreads();
 
   // level 2 over each query's 16 * m candidates: a query per group of 8
-  // lanes (12 candidates a lane), four queries of a warp side by side,
-  // warp w of 8 taking queries 8w .. 8w + 7 in two passes
+  // lanes (12 candidates a lane), four queries of a warp side by side
   const int gi = lane >> 3, gl = lane & 7;
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    const int ql = (tid >> 5) * 8 + pass * 4 + gi;
+  for (int ql = (tid >> 5) * 4 + gi; ql < QB; ql += THREADS / 8) {
     const long long row = (long long)(q0 + ql) * nsup + sup;
     level2_group(cand_v + ql * CL, cand_p + ql * CL, CL, rounds2, gl,
                  out_v + row * rounds2, out_p + row * rounds2);
-    if (gl == 0) out_rem[row] = fmaxf(s_rem[ql], s_rem[QB + ql]);
+    if (gl == 0) out_rem[row] = s_rem[ql];
   }
 }
 
 int smem_bytes(int D, int m) {
   return 1024 + (D / KC) * Q_TILE + NWG * S_TILE + QB * BINS * m * 8 +
-         NWG * QB * 4;
+         QB * 4;
 }
 
 template <typename CT>
