@@ -45,7 +45,7 @@
 #include <math.h>
 
 #include "score_tile.cuh"
-#include "topk_select.cuh"  // better, group_best, level2
+#include "topk_select.cuh"  // better, group_best, level2_warp
 
 namespace cldrd {
 namespace {
@@ -135,7 +135,7 @@ extract_topk_kernel(const QT* __restrict__ q, const CT* __restrict__ c,
           // compress the buffer to its top rounds2 (same level-2 result)
           float ov;
           int op;
-          level2(qv, qp, cq, rounds2, ov, op);
+          level2_warp(qv, qp, cq, rounds2, ov, op);
           __syncwarp();
           if (lane < rounds2) {
             qv[lane] = ov;
@@ -195,8 +195,8 @@ extract_topk_kernel(const QT* __restrict__ q, const CT* __restrict__ c,
     const int ql = warp * QPW + qq;
     float ov;
     int op;
-    level2(cand_v + ql * CAND_LD, cand_p + ql * CAND_LD, cnt, rounds2, ov,
-           op);
+    level2_warp(cand_v + ql * CAND_LD, cand_p + ql * CAND_LD, cnt, rounds2,
+                ov, op);
     const long long row = (long long)(q0 + ql) * nsup + sup;
     if (lane < rounds2) {
       out_v[row * rounds2 + lane] = ov;

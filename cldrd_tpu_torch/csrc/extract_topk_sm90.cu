@@ -61,7 +61,16 @@
 //   per four codes: (128 + low 7 bits) - (128 or 256 by the sign bit),
 //   exact, with no integer-to-float conversion.
 // - Adjacent blocks share a super-block, so the B/64 reads of a
-//   super-block fall close together in time and can hit in L2.
+//   super-block fall close together in time and hit in L2: with the
+//   block order turned around, so that every re-read misses, the kernel
+//   took 31.27 ms against 23.91 at B=512 over the 8.8M int8 store
+//   (tools/k1_variants.py, H100 80GB HBM3 at 700 W).
+// - Not taken, measured with tools/k1_parts.cu (the score loop alone):
+//   128 queries a block (m64n128k16, the store read by B/128 blocks)
+//   took 24.73 ms against 25.70 for 64, and resident, their 192 KB leave
+//   no room for the score tiles and candidates; a producer warp feeding a
+//   4-stage ring by TMA took 26.16 ms (by 16-byte cp.async 31.84) against
+//   the wgmma warps' own loads. PERF.md has the runs.
 // Shared memory: queries (D/64 tiles of 8 KB), 2 wgmma warpgroups x a
 // 64 x 128 fp32 score tile, the level-1 candidates (64 queries x 16 x
 // (R-1) pairs), the remainder bounds: 213 KB at D=768 and R=7, one block
@@ -71,7 +80,7 @@
 #include <stdint.h>
 
 #include "score_tile.cuh"   // DType, allow_dynamic_smem, MAX_DEVICES
-#include "topk_select.cuh"  // better, group_best
+#include "topk_select.cuh"  // better, group_best, level2
 
 namespace cldrd_k1_90 {
 
@@ -186,10 +195,15 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
   hi = *reinterpret_cast<uint32_t*>(&r1);
 }
 
-// A copy the compiler cannot fold away: an A fragment must live in
-// registers of its own while a wgmma reads it, not in the registers of
-// the loads it came from, which the next chunk's loads overwrite (folded
-// copies gave wrong, run-to-run varying scores on the card)
+// A copy the compiler cannot fold away. wgmma reads its A fragment from
+// registers until the wait that retires it, and no instruction may write
+// those registers before then. Folded into a plain copy, the fragment is
+// the loads' own registers, which the loop rewrites a chunk later while
+// the product may still read them: ptxas then put other values there
+// before the wait (72 such writes in the SASS; wrong scores that varied
+// from run to run). As an asm move, the fragment has registers of its
+// own, written again only after that wait. ops/_wgmma_check.py checks
+// the SASS of every build for such writes (none with this copy).
 __device__ __forceinline__ uint32_t copy_reg(uint32_t x) {
   uint32_t y;
   asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
@@ -291,45 +305,6 @@ __device__ __forceinline__ void best32(const float (&v)[32], float& bv,
   pair_level<1>(a, ia);
   bv = a[0];
   bu = ia[0];
-}
-
-// Level 2 over a query's n <= 96 buffered candidates by a group of 8
-// lanes (gl its lane), as topk_select.cuh's level2 does it by a warp:
-// `rounds` rounds of best (value desc, position asc), then mask every
-// copy of that position; exhausted rounds re-emit the lowest position
-// with -inf. Lane 0 of the group writes round r's pick to v[r], p[r].
-__device__ __forceinline__ void level2_group(const float* cv, const int* cp,
-                                             int n, int rounds, int gl,
-                                             float* v_out, int* p_out) {
-  constexpr int G = 8, PER = 96 / G;
-  float v[PER];
-  int p[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int idx = gl + G * j;
-    v[j] = idx < n ? cv[idx] : -INFINITY;
-    p[j] = idx < n ? cp[idx] : INT_MAX;
-  }
-  for (int rr = 0; rr < rounds; ++rr) {
-    float bv = v[0];
-    int bp = p[0];
-#pragma unroll
-    for (int j = 1; j < PER; ++j)
-      if (better(v[j], p[j], bv, bp)) {
-        bv = v[j];
-        bp = p[j];
-      }
-    cldrd::group_best<G>(bv, bp);
-    if (gl == 0) {
-      v_out[rr] = bv;
-      p_out[rr] = bp;
-    }
-    // positions may repeat (an exhausted bin re-emits its lowest row):
-    // masking by position removes every copy
-#pragma unroll
-    for (int j = 0; j < PER; ++j)
-      if (p[j] == bp) v[j] = -INFINITY;
-  }
 }
 
 // ----------------------------------------------------------------- kernel
@@ -546,8 +521,14 @@ extract_topk_sm90_kernel(const bf16* __restrict__ q, const CT* __restrict__ c,
   const int gi = lane >> 3, gl = lane & 7;
   for (int ql = (tid >> 5) * 4 + gi; ql < QB; ql += THREADS / 8) {
     const long long row = (long long)(q0 + ql) * nsup + sup;
-    level2_group(cand_v + ql * CL, cand_p + ql * CL, CL, rounds2, gl,
-                 out_v + row * rounds2, out_p + row * rounds2);
+    cldrd::level2<8, BINS * MAX_M / 8>(
+        cand_v + ql * CL, cand_p + ql * CL, CL, rounds2, gl,
+        [&](int r, float v, int p) {
+          if (gl == 0) {
+            out_v[row * rounds2 + r] = v;
+            out_p[row * rounds2 + r] = p;
+          }
+        });
     if (gl == 0) out_rem[row] = s_rem[ql];
   }
 }

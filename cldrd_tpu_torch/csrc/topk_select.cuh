@@ -34,48 +34,56 @@ __device__ __forceinline__ void group_best(float& v, int& i) {
   }
 }
 
-// Level 2 over a query's n buffered candidates: `rounds` rounds of best
-// (value desc, position asc), then mask every copy of that position.
-// Lane r < rounds returns round r's pick. Exhausted rounds re-emit the
-// lowest position among all entries with -inf, as the TPU kernel does.
+// Level 2 over a query's n <= G * PER buffered candidates by an aligned
+// group of G lanes (gl: the lane's place in the group): `rounds` rounds of
+// best (value desc, position asc), then mask every copy of that position.
+// Exhausted rounds re-emit the lowest position among all entries with
+// -inf, as the TPU kernel does. Every lane of the group calls
+// emit(r, value, position) with round r's pick.
+template <int G, int PER, typename Emit>
 __device__ __forceinline__ void level2(const float* cv, const int* cp, int n,
-                                       int rounds, float& out_v, int& out_p) {
-  const int lane = threadIdx.x % 32;
-  float v[3];
-  int p[3];
+                                       int rounds, int gl, Emit emit) {
+  float v[PER];
+  int p[PER];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int idx = lane + 32 * j;
-    if (idx < n) {
-      v[j] = cv[idx];
-      p[j] = cp[idx];
-    } else {
-      v[j] = -INFINITY;
-      p[j] = INT_MAX;
-    }
+  for (int j = 0; j < PER; ++j) {
+    const int idx = gl + G * j;
+    v[j] = idx < n ? cv[idx] : -INFINITY;
+    p[j] = idx < n ? cp[idx] : INT_MAX;
   }
-  out_v = -INFINITY;
-  out_p = INT_MAX;
   for (int rr = 0; rr < rounds; ++rr) {
     float bv = v[0];
     int bp = p[0];
 #pragma unroll
-    for (int j = 1; j < 3; ++j)
+    for (int j = 1; j < PER; ++j)
       if (better(v[j], p[j], bv, bp)) {
         bv = v[j];
         bp = p[j];
       }
-    group_best<32>(bv, bp);
-    if (lane == rr) {
-      out_v = bv;
-      out_p = bp;
-    }
+    group_best<G>(bv, bp);
+    emit(rr, bv, bp);
     // positions may repeat (an exhausted bin re-emits its lowest row):
     // masking by position removes every copy
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < PER; ++j)
       if (p[j] == bp) v[j] = -INFINITY;
   }
+}
+
+// level 2 by a whole warp over n <= 96 candidates: lane r < rounds
+// returns round r's pick
+__device__ __forceinline__ void level2_warp(const float* cv, const int* cp,
+                                            int n, int rounds, float& out_v,
+                                            int& out_p) {
+  const int lane = threadIdx.x % 32;
+  out_v = -INFINITY;
+  out_p = INT_MAX;
+  level2<32, 3>(cv, cp, n, rounds, lane, [&](int r, float v, int p) {
+    if (lane == r) {
+      out_v = v;
+      out_p = p;
+    }
+  });
 }
 
 }  // namespace cldrd

@@ -4,9 +4,9 @@ Replaces the TPU kernel ``cldrd_tpu/search/mips.py::_extract_kernel_factory``
 (launched by ``_binmax_segment_extract``), the production path of exact
 search. Two CUDA kernels compute it, picked by ``kernel_route`` from dtype
 and shape alone: ``csrc/extract_topk_sm90.cu`` (wgmma, resident queries,
-selection in registers) takes bf16 queries against bf16 or int8 stores with
-128-row bins, ``D`` a multiple of 128 up to 768 and batches that are
-multiples of 64, which is every launch of the main path;
+warp roles) takes bf16 queries against bf16 or int8 stores with 128-row
+bins and ``D`` a multiple of 128 up to 768, which is every launch of the
+main path;
 ``csrc/extract_topk.cu`` takes the rest (other bin sizes, fp32 operands,
 other widths). On an H100 both are bound by their tensor-core operations
 (2*B*N*D), about 7.0 ms at B=512 over the 8,847,360-row int8 store, and
@@ -97,16 +97,16 @@ def extract_topk_plain(queries, corpus, row_ids, rounds: int, rounds2: int,
     return out_v, out_p, out_r
 
 
-def kernel_route(q_dtype, c_dtype, bz: int, d: int, bin_rows: int) -> str:
+def kernel_route(q_dtype, c_dtype, d: int, bin_rows: int) -> str:
     """The CUDA kernel a launch takes, by dtype and shape alone: "sm90"
     (``csrc/extract_topk_sm90.cu``) for bf16 queries against a bf16 or
-    int8 store with 128-row bins, ``d`` a multiple of 128 up to 768 and a
-    batch that is a multiple of 64; "generic" (``csrc/extract_topk.cu``)
-    for everything else."""
+    int8 store with 128-row bins and ``d`` a multiple of 128 up to 768;
+    "generic" (``csrc/extract_topk.cu``) for everything else. Both take
+    every batch ``extract_topk`` admits (multiples of 64)."""
     if (q_dtype == torch.bfloat16
             and c_dtype in (torch.bfloat16, torch.int8)
             and bin_rows == SM90_BIN_ROWS and d % 128 == 0
-            and d <= SM90_MAX_DIM and bz % 64 == 0):
+            and d <= SM90_MAX_DIM):
         return "sm90"
     return "generic"
 
@@ -155,7 +155,7 @@ def extract_topk(queries: torch.Tensor, corpus: torch.Tensor,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    if kernel_route(queries.dtype, corpus.dtype, bz, d, bin_rows) == "sm90":
+    if kernel_route(queries.dtype, corpus.dtype, d, bin_rows) == "sm90":
         entry = "extract_topk_sm90_launch"
         _build.launch("extract_topk_sm90", entry, types, *ptrs, device=dev)
     else:

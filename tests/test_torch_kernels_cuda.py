@@ -529,7 +529,7 @@ def test_extract_topk_sm90_equals_plain(c_dtype, bz, rounds, rounds2):
                       dtype=torch.int8).to(torch.bfloat16)
     q[1] = q[0]                    # equal queries
     q[2] = 0                       # every score of a row equal
-    assert k1.kernel_route(q.dtype, c.dtype, bz, 768, 128) == "sm90"
+    assert k1.kernel_route(q.dtype, c.dtype, 768, 128) == "sm90"
     before = k1.ENTRY_LAUNCHES["extract_topk_sm90_launch"]
     got = k1.extract_topk(q, c, ids, rounds, rounds2, 128, scales)
     ref = k1.extract_topk_plain(q, c, ids, rounds, rounds2, 128, scales)
@@ -699,3 +699,38 @@ def test_infer_route_boundary_by_launch_name(dtype, length, d, entry):
     for name, count in att.ENTRY_LAUNCHES.items():
         assert count == before[name] + (name == entry)
     assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+# ------------------------------------------------ wgmma register hazards
+
+
+@pytest.mark.cuda
+def test_built_kernels_have_no_wgmma_register_hazards():
+    """No instruction of a built kernel writes a wgmma's register-A
+    operand or touches its accumulators before the wait that retires it
+    (ops/_wgmma_check.py reads the SASS; cuobjdump comes with nvcc)."""
+    _device()
+    from cldrd_tpu_torch.ops import _build, _wgmma_check
+
+    paths = _build.build_all()
+    counts = _wgmma_check.check_libraries(paths.values())
+    hgmma = {name.split("-")[0]: n for name, n in counts.items()}
+    assert hgmma["extract_topk_sm90"] > 0 and hgmma["attention_sm90"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype,rounds,rounds2", [
+    (torch.int8, 5, 8), (torch.bfloat16, 7, 16)])
+def test_extract_topk_sm90_equals_plain_on_every_launch(c_dtype, rounds,
+                                                        rounds2):
+    """At the main path's batch (512) the sm90 kernel EQUALS the plain
+    version on integer inputs ten launches running: a register hazard
+    showed on some launches only."""
+    dev = _device()
+    q, c, ids, scales = _inputs(dev, 512, 64 * 2048, 768, c_dtype, 13)
+    ref = k1.extract_topk_plain(q, c, ids, rounds, rounds2, 128, scales)
+    for _ in range(10):
+        got = k1.extract_topk(q, c, ids, rounds, rounds2, 128, scales)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)

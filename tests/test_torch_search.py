@@ -356,7 +356,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     (torch.bfloat16, torch.bfloat16, 512, 768, 128, "sm90"),
     (torch.bfloat16, torch.int8, 64, 768, 128, "sm90"),
     (torch.bfloat16, torch.bfloat16, 1024, 128, 128, "sm90"),
-    (torch.bfloat16, torch.int8, 96, 768, 128, "generic"),  # not 64k
+    (torch.bfloat16, torch.int8, 128, 768, 32, "generic"),
     (torch.bfloat16, torch.int8, 512, 768, 64, "generic"),  # other bins
     (torch.bfloat16, torch.int8, 512, 768, 256, "generic"),
     (torch.bfloat16, torch.float32, 512, 768, 128, "generic"),
@@ -368,9 +368,10 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
 ])
 def test_k1_kernel_route_by_dtype_and_shape(q_dtype, c_dtype, bz, d,
                                             bin_rows, route):
-    """Which K1 kernel a launch takes is a function of dtypes, batch,
-    width and bin size alone, pinned here without a card."""
-    assert k1.kernel_route(q_dtype, c_dtype, bz, d, bin_rows) == route
+    """Which K1 kernel a launch of batch ``bz`` takes is a function of
+    dtypes, width and bin size alone, pinned here without a card."""
+    assert bz % 64 == 0  # every batch extract_topk launches
+    assert k1.kernel_route(q_dtype, c_dtype, d, bin_rows) == route
 
 
 @pytest.mark.parametrize("hbm_dtype,n,nq,batch", [
@@ -395,5 +396,5 @@ def test_every_main_path_k1_launch_takes_sm90(hbm_dtype, n, nq, batch):
     for b in range(0, nq, batch):
         bz = -(-min(batch, nq - b) // 128) * 128
         assert mips._extract_eligible(bz, n, bin_rows)
-        assert k1.kernel_route(q_dtype, hbm_dtype, bz, 768,
-                               bin_rows) == "sm90"
+        assert bz % 64 == 0
+        assert k1.kernel_route(q_dtype, hbm_dtype, 768, bin_rows) == "sm90"
