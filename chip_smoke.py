@@ -13,9 +13,12 @@ Phases (each raises on any failure; the script then exits non-zero):
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it. K1/K2 (D=768; K1 at N=1,048,576
    with B=128 and 512, at the pipeline's N=32,768, k=100, and at bin
-   sizes 32, 64 and 256; K2 at the portable route's ragged batch; bf16,
-   int8 with scales, and fp32 stores): on integer-valued inputs every dot
-   is exact, so outputs must be EQUAL, ties included; on normal data
+   sizes 32, 64 and 256; K2 at the portable route's ragged batch, at
+   B=2048 over the 1,769,472-row segment a wide search_batched gives it,
+   at every bin size 8-128 with a partial last row tile, and with an
+   all-zero query; bf16, int8 with scales, and fp32 stores): on
+   integer-valued inputs every dot is exact, so outputs must be EQUAL,
+   ties included (K2's bit for bit: a zero sum is +0); on normal data
    values agree within 1e-5 of the largest score and every emitted
    position scores its slot's value. K3/K4/K5 (H=12, D=64; the passage
    tower's B=240, L=256, the query tower's B=8, L=30, packed rows with
@@ -44,7 +47,11 @@ Phases (each raises on any failure; the script then exits non-zero):
    launches, each EQUAL) and
    extract_topk.cu for fp32 and the other bins; it is timed beside
    extract_topk.cu forced on the same inputs and beside a bare bf16
-   torch.matmul over the store. K5 takes attention_infer.cu at the query
+   torch.matmul over the store. K2 takes fused_binmax_sm90.cu for bf16
+   queries against bf16 and int8 stores (fused_binmax.cu for fp32) and
+   is timed at B=512 over 1M bf16 rows and at B=2048 over the int8
+   store's first 1,769,472 rows (scales) beside fused_binmax.cu forced on
+   the same inputs, its plain version and a bare bf16 torch.matmul. K5 takes attention_infer.cu at the query
    encode (B=512, L=30) and the sm90 forward at B=240, L=256, each held
    to its plain version with the query tower's padding (EQUAL on exact
    inputs) and timed beside attention.cu's tiled forward forced on the
@@ -59,7 +66,12 @@ Phases (each raises on any failure; the script then exits non-zero):
    B=512, k=1000 over 64 distinct batches per store for QPS, a sample
    checked against a torch exact oracle (full matmul + two-key sort), and
    integer-valued batches that must need no rescue and equal the oracle;
-   and topk_binmax at a ragged batch, which takes the portable route.
+   topk_binmax at a ragged batch, which takes the portable route; and
+   search_batched at batch_size=2048 over the int8 store (the portable
+   route: K2 on 5 segments a batch), 4 timed batches for QPS with a
+   sample against the oracle, and an integer-valued batch whose sample
+   must equal it. One wide topk_binmax call is traced beforehand and its
+   device time split into K2's and the rest's.
 4. train: at DistilBERT-base width from random weights (--seed), the hash
    tokenizer, 32,768 synthetic passages and label-mode 8/9/10 training
    files: cli.curriculum runs three iterations (bz 8, nway 30, Lq 30,
@@ -96,8 +108,9 @@ Phases (each raises on any failure; the script then exits non-zero):
 Phases 3-6 drive the port's four paths (search, train, pipeline,
 serve). Kernel launch counts are set to 0 just before each and read just
 after it: a kernel its path must reach with no launch there fails the
-run, every K1 and K5 launch of a window must have gone through the
-Hopper entry points (extract_topk_sm90_launch, attn_infer_short_launch),
+run, every K1, K2 and K5 launch of a window must have gone through the
+Hopper entry points (extract_topk_sm90_launch, fused_binmax_sm90_launch,
+attn_infer_short_launch),
 and the kernels line sums the four windows. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
@@ -155,6 +168,9 @@ TIMED_BATCHES = 64   # distinct query batches in each store's QPS window
 INT_BATCHES = 4      # integer-valued batches per store (exactness, rescues)
 ORACLE_SAMPLE = 32
 RAGGED = 200         # a batch K1 does not take: the portable route
+WIDE_BATCH = 2048    # search_batched(batch_size=2048): the portable route
+WIDE_BATCHES = 4     # wide batches in the search phase's window
+N_WIDE_SEGMENT = 1_769_472  # the segment topk_binmax cuts 8.8M rows into
 K1_EQUAL_LAUNCHES = 10  # K1 launches held EQUAL at each main-path shape
 IVF_NB, IVF_SLOT, IVF_P = 4096, 2048, 32  # full-corpus serving store (K6)
 IVF_BF16_NB = 512                         # 1,048,576 bf16 rows (K6)
@@ -390,32 +406,101 @@ def _compare_k1(ctx, bz, n, c_dtype, q_dtype, integer, k=K, bin_rows=128,
                    bin_rows, launches)
 
 
+def _close_by_rows(tag, got, ref, rtol=1e-5, rows=256):
+    """``_close`` over blocks of ``rows`` query rows, for score tensors too
+    large for its temporaries: the same -inf pattern, finite values within
+    ``rtol`` of the largest reference value. Returns the largest absolute
+    difference."""
+    err, scale = 0.0, 0.0
+    for r0 in range(0, ref.shape[0], rows):
+        g, r = got[r0:r0 + rows], ref[r0:r0 + rows]
+        fin = torch.isfinite(r)
+        if not torch.equal(fin, torch.isfinite(g)):
+            raise AssertionError(f"{tag}: -inf pattern differs")
+        if bool(fin.any()):
+            err = max(err, (g[fin] - r[fin]).abs().max().item())
+            scale = max(scale, r[fin].abs().max().item())
+    if err > rtol * scale:
+        raise AssertionError(f"{tag}: max abs err {err:.3g} > {rtol} x "
+                             f"{scale:.3g}")
+    return err
+
+
 def _compare_k2_on(ctx, tag, q, c, ids, scales, bin_rows, integer):
-    from cldrd_tpu_torch.ops.fused_binmax import fused_binmax, fused_binmax_plain
+    """K2 against its plain version on the same inputs. Integer-valued
+    inputs: EQUAL bit for bit (a zero sum is +0 in both). Normal data:
+    within 1e-5 of the largest score. Counts the launch by entry point."""
+    from cldrd_tpu_torch.ops import fused_binmax as k2
 
     tag = (f"K2 {tag} B={q.shape[0]} N={c.shape[0]} {str(c.dtype)[6:]} "
-           f"bin={bin_rows} {'int' if integer else 'normal'}")
-    got = fused_binmax(q, c, ids, bin_rows, scales)
-    ref = fused_binmax_plain(q, c, ids, bin_rows, scales)
+           f"bin={bin_rows} {'int' if integer else 'normal'} "
+           f"{k2.kernel_route(q.dtype, c.dtype, q.shape[1], bin_rows)}")
+    got = k2.fused_binmax(q, c, ids, bin_rows, scales)
+    ref = k2.fused_binmax_plain(q, c, ids, bin_rows, scales)
     if integer:
         for name, a, b in zip(("scores", "bmax"), got, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{tag}: {name} differs on "
-                                     "integer-valued inputs")
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                raise AssertionError(f"{tag}: {name} differs in {bad} "
+                                     "places on integer-valued inputs")
         err = 0.0
     else:
-        err = max(_close(f"{tag} {name}", a, b)
+        err = max(_close_by_rows(f"{tag} {name}", a, b)
                   for name, a, b in zip(("scores", "bmax"), got, ref))
+    del got, ref
     log(f"[kernels] {tag}: {'EQUAL' if integer else 'agrees'}, "
         f"max_abs_err {err:.3g}")
     ctx["k2_err"] = max(ctx.get("k2_err", 0.0), err)
+    ctx.setdefault("k2_checked", []).append(tag)
 
 
 def _compare_k2(ctx, bz, n, c_dtype, q_dtype, integer, bin_rows=128):
+    """On integer inputs one query is all zeros: its scores are exactly
+    zero sums, which must come out +0."""
     dev, gen = ctx["dev"], ctx["gen"]
     st = Store(n, D, c_dtype, dev, gen, integer, pad_rows=1000)
     q = make_queries(bz, D, q_dtype, dev, gen, integer)
+    if integer:
+        q[bz // 2] = 0
     _compare_k2_on(ctx, "gen", q, st.c, st.ids, st.scales, bin_rows, integer)
+    del st, q
+    torch.cuda.empty_cache()
+
+
+def _time_k2(ctx, tag, q, c, ids, scales, bin_rows=128):
+    """K2 at one shape on normal data: held to its plain version, then its
+    device time beside fused_binmax.cu forced on the same inputs, the
+    plain version, the bare bf16 torch.matmul score product (no one
+    PyTorch call computes K2's function) and the bound."""
+    from cldrd_tpu_torch.ops.fused_binmax import fused_binmax, fused_binmax_plain
+
+    bz, n = q.shape[0], c.shape[0]
+    _compare_k2_on(ctx, tag, q, c, ids, scales, bin_rows, integer=False)
+    torch.cuda.empty_cache()
+    call = lambda: fused_binmax(q, c, ids, bin_rows, scales)  # noqa: E731
+    reps = 5 if bz * n <= (1 << 30) else 3
+    t = dict(ms=device_ms(call, reps=reps, warmup=1))
+    with _k2_generic():  # the kernel of PRs 1-5, same inputs
+        t["generic_ms"] = device_ms(call, reps=2, warmup=1)
+    t["plain_ms"] = device_ms(lambda: fused_binmax_plain(q, c, ids, bin_rows,
+                                                         scales),
+                              reps=1, warmup=1)
+    cb = c if c.dtype == torch.bfloat16 else c.to(torch.bfloat16)
+    t["matmul_ms"] = device_ms(lambda: torch.matmul(q, cb.T), reps=3,
+                               warmup=1)
+    del cb
+    torch.cuda.empty_cache()
+    nbytes, ops = k2_bytes_ops(bz, n, D, c.dtype, q.dtype, bin_rows,
+                               scales is not None)
+    t.update(bound=bound_ms(nbytes, ops, op_type(q.dtype, c.dtype)),
+             bytes=nbytes, ops=ops, B=bz, N=n)
+    t["library_note"] = f"none (bf16 matmul alone: {t['matmul_ms']} ms)"
+    ctx.setdefault("timings", {}).setdefault("fused_binmax", {})[tag] = t
+    log(f"[time] fused_binmax {tag} B={bz} N={n} {str(c.dtype)[6:]}, device "
+        f"ms: kernel {t['ms']:.3f} (fused_binmax.cu, forced: "
+        f"{t['generic_ms']:.3f}), plain {t['plain_ms']:.3f}, bound "
+        f"{t['bound'][0]:.3f} ({t['bound'][1]}), torch.matmul bf16 "
+        f"{t['matmul_ms']:.3f}")
 
 
 # ------------------------------------------------------------------ phases
@@ -466,11 +551,19 @@ def phase_kernels(ctx):
     # the other bin sizes the extract route admits (int8 store, scales)
     for bin_rows in (32, 64, 256):
         _compare_k1(ctx, 128, N_BINS, i8, bf16, True, bin_rows=bin_rows)
+    # K2 (every launch of these but fp32's through fused_binmax_sm90.cu;
+    # one query all zeros): the portable route's ragged batch, the wide
+    # batch over the segment search_batched(batch_size=2048) gives it, and
+    # every bin size with a partial last row tile (N % 128 = bin_rows)
     for bz in (128, RAGGED):
         _compare_k2(ctx, bz, n, bf16, bf16, True)
         _compare_k2(ctx, bz, n, i8, bf16, True)
+    _compare_k2(ctx, WIDE_BATCH, N_WIDE_SEGMENT, i8, bf16, True)
     _compare_k2(ctx, RAGGED, n, f32, f32, True)
-    _compare_k2(ctx, RAGGED, n, bf16, bf16, True, bin_rows=16)
+    for bin_rows in (8, 16, 32, 64):
+        _compare_k2(ctx, RAGGED, N_BINS + bin_rows, i8, bf16, True,
+                    bin_rows=bin_rows)
+    _compare_k2(ctx, 1, N_BINS + 16, bf16, bf16, True, bin_rows=16)
     # normal data: values within 1e-5 relative, positions up to near-ties
     _compare_k1(ctx, 128, n, f32, f32, False)
     _compare_k1(ctx, SEARCH_BATCH, N_PIPELINE, bf16, bf16, False,
@@ -505,10 +598,11 @@ def phase_kernels(ctx):
     torch.cuda.empty_cache()
 
     # K1 and K2 held to their plain versions and timed at B=512, N=1M bf16
-    # (K1 at the bf16 store's shape, K2 at the portable route's widest batch)
+    # (K1 at the bf16 store's shape; K2 at the shape of its earlier rows)
     st = Store(n, D, bf16, dev, gen, False)
     q = make_queries(SEARCH_BATCH, D, bf16, dev, gen, False)
-    _time_kernels(ctx, "bf16_1M", q, st.c, st.ids, None, k2=True)
+    _time_kernels(ctx, "bf16_1M", q, st.c, st.ids, None)
+    _time_k2(ctx, "bf16_1M", q, st.c, st.ids, None)
     del st, q
     torch.cuda.empty_cache()
     _ivf_probe_checks(ctx)
@@ -629,18 +723,15 @@ def _ivf_probe_checks(ctx):
     del rows
 
 
-def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
-    """At one shape, on normal data: kernel against plain version, then the
-    kernel's, the plain version's and the bare bf16 torch.matmul score
-    product's times; the results land in ctx["timings"][kernel][tag]."""
+def _time_kernels(ctx, tag, q, c, ids, scales):
+    """K1 at one shape, on normal data: kernel against plain version, then
+    the kernel's, the plain version's and the bare bf16 torch.matmul score
+    product's times; the results land in ctx["timings"]["extract_topk"]."""
     from cldrd_tpu_torch.ops.extract_topk import extract_topk, extract_topk_plain
-    from cldrd_tpu_torch.ops.fused_binmax import fused_binmax, fused_binmax_plain
 
     bz, n = q.shape[0], c.shape[0]
     R, R2 = k1_rounds(bz, n, K)
     _compare_k1_on(ctx, tag, q, c, ids, scales, K, integer=False)
-    if k2:
-        _compare_k2_on(ctx, tag, q, c, ids, scales, 128, integer=False)
     torch.cuda.empty_cache()
     qb = q.to(torch.bfloat16)
     if c.dtype == torch.bfloat16:
@@ -662,25 +753,11 @@ def _time_kernels(ctx, tag, q, c, ids, scales, k2=False):
                                                       scales),
                            reps=1, warmup=1),
         bound=bound_ms(b1, o1, ot), matmul_ms=t_mm, B=bz, N=n, R=R, R2=R2)
-    if k2:
-        b2, o2 = k2_bytes_ops(bz, n, D, c.dtype, q.dtype, 128,
-                              scales is not None)
-        rows.setdefault("fused_binmax", {})[tag] = dict(
-            ms=device_ms(lambda: fused_binmax(q, c, ids, 128, scales),
-                         reps=5, warmup=1),
-            plain_ms=device_ms(lambda: fused_binmax_plain(q, c, ids, 128,
-                                                          scales),
-                               reps=1, warmup=1),
-            bound=bound_ms(b2, o2, ot), matmul_ms=t_mm, B=bz, N=n)
-    for kernel in ("extract_topk", "fused_binmax"):
-        r = rows.get(kernel, {}).get(tag)
-        if r:
-            old = (f" (extract_topk.cu, forced: {r['generic_ms']:.3f} ms)"
-                   if "generic_ms" in r else "")
-            log(f"[time] {kernel} {tag} B={bz} N={n}, device ms: kernel "
-                f"{r['ms']:.3f}{old}, plain {r['plain_ms']:.3f}, bound "
-                f"{r['bound'][0]:.3f} ({r['bound'][1]}), torch.matmul bf16 "
-                f"{t_mm:.3f}")
+    r = rows["extract_topk"][tag]
+    log(f"[time] extract_topk {tag} B={bz} N={n}, device ms: kernel "
+        f"{r['ms']:.3f} (extract_topk.cu, forced: {r['generic_ms']:.3f} "
+        f"ms), plain {r['plain_ms']:.3f}, bound {r['bound'][0]:.3f} "
+        f"({r['bound'][1]}), torch.matmul bf16 {t_mm:.3f}")
 
 
 # ------------------------------------------------ attention vs plain
@@ -1128,15 +1205,32 @@ def _check_exact(tag, got_v, got_i, ref_v, ref_i):
 
 
 def _check_close(tag, got_v, got_i, ref_v, ref_i, rtol=1e-5):
+    """Values within ``rtol``; the ids each side ranks above the cut
+    vk + margin (vk the oracle's k-th value, margin ``rtol * |vk|``) are
+    the same, except an id both sides return with values within margin of
+    each other that fall on the two sides of the cut: a score at the cut,
+    not a wrong id (logged with both values). Any other difference fails,
+    naming the id and its values."""
     np.testing.assert_allclose(got_v, ref_v, rtol=rtol, err_msg=tag)
     for r in range(len(ref_v)):
         vk = ref_v[r, -1]
         margin = rtol * abs(vk)
-        a = set(got_i[r][got_v[r] > vk + margin])
-        b = set(ref_i[r][ref_v[r] > vk + margin])
-        if a != b:
-            raise AssertionError(f"{tag}: query {r} top-k ids differ away "
-                                 "from ties")
+        cut = vk + margin
+        a = set(got_i[r][got_v[r] > cut])
+        b = set(ref_i[r][ref_v[r] > cut])
+        if a == b:
+            continue
+        gv = dict(zip(got_i[r].tolist(), got_v[r].tolist()))
+        rv = dict(zip(ref_i[r].tolist(), ref_v[r].tolist()))
+        for x in sorted(a ^ b):
+            at_cut = (x in gv and x in rv
+                      and abs(gv[x] - rv[x]) <= margin)
+            log(f"[search] {tag}: query {r} id {x}: search "
+                f"{gv.get(x)!r}, oracle {rv.get(x)!r}, cut {cut!r} "
+                f"({'at the cut' if at_cut else 'WRONG'})")
+            if not at_cut:
+                raise AssertionError(f"{tag}: query {r} top-k ids differ "
+                                     f"away from ties (id {x})")
 
 
 def _sample(nq):
@@ -1208,6 +1302,12 @@ def prepare_search(ctx):
     _time_kernels(ctx, "int8_full", q, codes, ids, scales)
     _time_search_layer(ctx, "int8_full", s_int8, q)
     _time_search_layer(ctx, "bf16_1M", s_bf16, q)
+    # K2 at the wide batch over the first segment of the int8 store, and
+    # one wide topk_binmax call split into K2 and the rest of the route
+    qw = make_queries(WIDE_BATCH, D, torch.bfloat16, dev, gen, False)
+    seg = slice(0, N_WIDE_SEGMENT)
+    _time_k2(ctx, "int8_wide", qw, codes[seg], ids[seg], scales[seg])
+    _time_wide_split(ctx, s_int8, qw)
     return s_int8, s_bf16
 
 
@@ -1224,6 +1324,74 @@ def _time_search_layer(ctx, tag, index, q):
     ctx.setdefault("search_layer_ms", {})[tag] = ms
     log(f"[time] topk_binmax {tag} B={q.shape[0]} k={K}: {ms:.3f} ms on the "
         "device")
+
+
+def _time_wide_split(ctx, index, q):
+    """One topk_binmax call at the wide batch as FlatIPIndex makes it (the
+    portable route: K2 per segment, then bin selection, gathers and
+    top-k in plain PyTorch), traced: device ms by kernel, split into K2's
+    and the rest's, beside the call's CUDA-event time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cldrd_tpu_torch.search import mips
+
+    q = q.to(index._query_dtype)
+
+    def call():
+        return mips.topk_binmax(q, index.embeddings, index.row_ids, K,
+                                return_positions=True, on_miss="flag",
+                                row_scales=index.row_scales)
+
+    event_ms = time_ms(call, reps=1, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_name(prof)
+    k2_ms = sum(v for name, v in by_name.items() if "fused_binmax" in name)
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ctx.setdefault("search_layer_ms", {})["int8_wide"] = dict(
+        event_ms=event_ms, device_ms=total, k2_ms=k2_ms,
+        rest_ms=total - k2_ms, top_kernels=top)
+    log(f"[time] topk_binmax int8_wide B={q.shape[0]} k={K}: {event_ms:.3f} "
+        f"ms (CUDA events); device {total:.3f} ms = K2 {k2_ms:.3f} + rest "
+        f"{total - k2_ms:.3f}; largest: "
+        + ", ".join(f"{name[:60]} {v:.3f}" for name, v in top))
+
+
+def _search_wide(ctx, index, q_normal, q_int):
+    """search_batched at batch_size=2048 (the portable route, K2 per
+    segment): QPS over WIDE_BATCHES batches of normal queries, a sample
+    of which must agree with the oracle within 1e-5; then integer-valued
+    queries, whose sample must EQUAL it (re-scanned rows included)."""
+    bz = WIDE_BATCH
+    nq = bz * WIDE_BATCHES
+    qn = q_normal[:nq]
+    index.search_batched(qn[:bz], K, batch_size=bz)  # warm-up
+    r0 = index.rescued_queries
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, i = index.search_batched(qn, K, batch_size=bz)
+    elapsed = time.perf_counter() - t0
+    res = dict(queries=nq, batches=WIDE_BATCHES, seconds=elapsed,
+               qps=nq / elapsed, rescued_share=(index.rescued_queries - r0)
+               / nq)
+    sample = _sample(nq)
+    ref_v, ref_i = _oracle(index, qn[sample], K)
+    _check_close("int8 wide normal", s[sample], i[sample], ref_v, ref_i)
+    r1 = index.rescued_queries
+    si, ii = index.search_batched(q_int, K, batch_size=bz)
+    res["integer_queries_rescued"] = index.rescued_queries - r1
+    sample = _sample(len(q_int))
+    ref_v, ref_i = _oracle(index, q_int[sample], K)
+    _check_exact("int8 wide integer", si[sample], ii[sample], ref_v, ref_i)
+    res["exact_sampled"] = int(len(sample))
+    ctx.setdefault("search", {})["int8_wide"] = res
+    log(f"[search] int8 wide: {nq} queries ({WIDE_BATCHES} batches of {bz}) "
+        f"in {elapsed:.3f} s = {res['qps']:.1f} QPS (k={K}), rescued share "
+        f"{res['rescued_share']:.4f}; {len(q_int)} integer-valued queries "
+        f"({res['integer_queries_rescued']} re-scanned), {len(sample)} "
+        "sampled equal the exact oracle")
 
 
 def phase_search(ctx, store_int8, store_bf16):
@@ -1249,6 +1417,7 @@ def phase_search(ctx, store_int8, store_bf16):
                  p.cpu().numpy()[ok], ref_v[ok], ref_i[ok])
     log(f"[search] portable route B={RAGGED}: {ok.mean():.4f} certified, all "
         "certified rows equal the oracle")
+    _search_wide(ctx, store_int8, q_normal, q_int)
     if k1_mod.LAUNCHES <= 0:
         raise AssertionError("search ran without an extract_topk launch")
     log(f"[search] extract_topk.LAUNCHES = {k1_mod.LAUNCHES} > 0")
@@ -2122,6 +2291,20 @@ def _k1_generic():
         k1_mod.kernel_route = saved
 
 
+@contextlib.contextmanager
+def _k2_generic():
+    """K2 on the card through fused_binmax.cu, forced (the kernel of PRs
+    1-5), in place of what kernel_route picks."""
+    from cldrd_tpu_torch.ops import fused_binmax as k2_mod
+
+    saved = k2_mod.kernel_route
+    k2_mod.kernel_route = lambda *a: "generic"
+    try:
+        yield
+    finally:
+        k2_mod.kernel_route = saved
+
+
 def _route_model_config():
     from cldrd_tpu_torch.models import DistilBertConfig
 
@@ -2543,6 +2726,13 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
     for key in ("matmul_ms", "library_note", "generic_ms", "tiled_ms"):
         if key in t:
             rec[key] = t[key]
+    # the kernel's other timed shapes, by tag
+    others = {k: {key: v[key] for key in ("ms", "generic_ms", "plain_ms",
+                                          "matmul_ms") if key in v}
+              | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+              for k, v in ctx["timings"][name].items() if k != tag}
+    if others:
+        rec["other_shapes"] = others
     return rec
 
 
@@ -2550,7 +2740,7 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
 KERNELS = [
     ("extract_topk", ("extract_topk", None), "csrc/extract_topk_sm90.cu",
      "cldrd_tpu/search/mips.py:605", "int8_full", "k1_err"),
-    ("fused_binmax", ("fused_binmax", None), "csrc/fused_binmax.cu",
+    ("fused_binmax", ("fused_binmax", None), "csrc/fused_binmax_sm90.cu",
      "cldrd_tpu/search/mips.py:361", "bf16_1M", "k2_err"),
     ("attention_train_fwd", ("attention", "train_fwd"),
      "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:204", "train",
@@ -2577,10 +2767,11 @@ def _counters():
             "attention": attention, "ivf_probe": ivf_probe}
 
 
-# the C entry points whose launches the paths must show: every K1 launch
-# of the main path through the sm90 kernel, every K5 launch through the
-# short-row one (the query encode's L=30)
+# the C entry points whose launches the paths must show: every K1 and K2
+# launch of the main path through its sm90 kernel, every K5 launch
+# through the short-row one (the query encode's L=30)
 ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
+           "fused_binmax": ("fused_binmax", "fused_binmax_sm90_launch"),
            "attention_infer": ("attention", "attn_infer_short_launch")}
 
 
@@ -2608,8 +2799,8 @@ def read_launches():
 
 
 def check_entries(path, window):
-    """Every K1 and K5 launch of a path's window went through the Hopper
-    entry point (K5's launches of the main path are all L=30)."""
+    """Every K1, K2 and K5 launch of a path's window went through the
+    Hopper entry point (K5's launches of the main path are all L=30)."""
     for name, (_, entry) in ENTRIES.items():
         if window[name] != window[f"entry:{entry}"]:
             raise AssertionError(
@@ -2690,7 +2881,8 @@ def main(argv=None) -> int:
                                 "train", "pipeline", "serve", "k1_err",
                                 "attn_tight", "attn_exact_elements",
                                 "attn_model_calls",
-                                "k2_err", "k6_err", "attn_err_fp32",
+                                "k2_err", "k2_checked", "k6_err",
+                                "attn_err_fp32",
                                 "attn_err_bf16",
                                 "k5_err", "k1_checked", "build_s")}))
     log(smi_line())

@@ -1,4 +1,8 @@
-// K2: fused masked scores + per-bin maxima for the portable bin-max route.
+// K2: fused masked scores + per-bin maxima for the portable bin-max route,
+// generic kernel: the launches ops/fused_binmax.py::kernel_route does not
+// send to fused_binmax_sm90.cu, which are fp32 operands (queries or
+// store) and widths that are not a multiple of 64 or exceed 768. No
+// launch of the main path takes it since fused_binmax_sm90.cu.
 //
 // Replaces the TPU kernel cldrd_tpu/search/mips.py::_fused_kernel_factory
 // (launched by _scores_and_binmax). One pass computes the fp32 score tile
@@ -7,14 +11,16 @@
 // the per-row scale after the dot and the id < 0 -> -inf mask, writes the
 // tile to scores [B, N] and reduces each bin of bin_rows rows to its max
 // while the tile is still in shared memory, writing bmax [B, N / bin_rows].
-// The reduction never re-reads the scores from device memory.
+// The reduction never re-reads the scores from device memory. A sum that
+// is exactly zero is written as +0, as the plain version gives it.
 //
-// Bound on an H100 SXM: the [B, N] fp32 score write. At B=512, N=1,048,576,
-// D=768 with bf16 rows: 2.15 GB written + 1.6 GB read (1.1 ms at 3.35 TB/s)
-// against 0.82 TFLOP (0.83 ms at 989 TFLOP/s): bound by bytes. Design:
-// score writes are row-contiguous per query (coalesced), and the bin max
-// is a warp shuffle over float4 reads of the tile. Synchronous WMMA depth
-// chunks, as in extract_topk.cu; this first version is not tuned.
+// Bound on an H100 SXM: the [B, N] fp32 score write and the store read,
+// or for fp32 operands the fp32 FMA rate (67 TFLOP/s): at B=512,
+// N=1,048,576, D=768 with fp32 rows, 3.2 GB read and 2.15 GB written
+// (1.6 ms) against 0.82 TFLOP (12.3 ms): operations bind. Design: score
+// writes are row-contiguous per query (coalesced), and the bin max is a
+// warp shuffle over float4 reads of the tile. Synchronous WMMA depth
+// chunks, as in extract_topk.cu; this kernel is not tuned.
 #include <math.h>
 
 #include "score_tile.cuh"
@@ -56,7 +62,7 @@ fused_binmax_kernel(const QT* __restrict__ q, const CT* __restrict__ c,
   // consecutive rows of one query
   for (int i = threadIdx.x; i < QB * TILE_ROWS; i += NTHREADS) {
     const int ql = i / TILE_ROWS, r = i % TILE_ROWS;
-    float s = Ss[ql * S_LD + r] * row_scale[r];
+    float s = (Ss[ql * S_LD + r] + 0.0f) * row_scale[r];  // -0 -> +0
     s = row_valid[r] ? s : NEG;
     Ss[ql * S_LD + r] = s;
     if (q0 + ql < B && r0 + r < N) out_s[(long long)(q0 + ql) * N + r0 + r] = s;

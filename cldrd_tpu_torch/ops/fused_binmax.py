@@ -1,11 +1,25 @@
 """K2: masked fp32 scores plus per-bin maxima in one pass.
 
 Replaces the TPU kernel ``cldrd_tpu/search/mips.py::_fused_kernel_factory``
-(launched by ``_scores_and_binmax``). The CUDA kernel is
-``csrc/fused_binmax.cu``; its bound on an H100 is the ``[B, N]`` fp32 score
-write (see the note there). ``fused_binmax_plain`` is the plain PyTorch
-version of the same function: the CPU path, and what the kernel is held
-to on the card.
+(launched by ``_scores_and_binmax``), the portable search route's kernel:
+batches the extract route does not take (over 1,024 queries, or not a
+multiple of 128) and stores whose length is not a multiple of 2,048 rows.
+Two CUDA kernels compute it, picked by ``kernel_route`` from dtype and
+shape alone:
+
+- ``csrc/fused_binmax_sm90.cu`` (wgmma, resident queries, row tiles fed
+  to shared memory by TMA or by producer warps that widen int8, scores
+  out by TMA store) takes bf16 queries against bf16 or int8 stores with
+  ``D`` a multiple of 64 up to 768 and bins of 8-128 rows, at any batch:
+  every launch of the main path;
+- ``csrc/fused_binmax.cu`` (synchronous WMMA or fp32 FMA over
+  ``score_tile.cuh``) takes the rest: fp32 operands and other widths.
+
+On an H100 both are bound by the ``[B, N]`` fp32 score write and the
+store read, or by the products at wide batches (2*B*N*D; see the notes
+in the sources). ``fused_binmax_plain`` is the plain PyTorch version of
+the same function: the CPU path, and what both kernels are held to on
+the card.
 """
 from __future__ import annotations
 
@@ -17,6 +31,10 @@ import torch
 from . import _build
 
 LAUNCHES = 0  # kernel launches through fused_binmax()
+# launches by C entry point (the route each took)
+ENTRY_LAUNCHES = {"fused_binmax_launch": 0, "fused_binmax_sm90_launch": 0}
+BIN_SIZES = (8, 16, 32, 64, 128)
+SM90_MAX_DIM = 768
 
 NEG_INF = float("-inf")
 # plain versions score at most this many rows at once (bounds the fp32
@@ -53,6 +71,20 @@ def fused_binmax_plain(queries, corpus, row_ids, bin_rows: int,
     return scores, scores.view(bz, n // bin_rows, bin_rows).amax(-1)
 
 
+def kernel_route(q_dtype, c_dtype, d: int, bin_rows: int) -> str:
+    """The CUDA kernel a launch takes, by dtype and shape alone: "sm90"
+    (``csrc/fused_binmax_sm90.cu``) for bf16 queries against a bf16 or
+    int8 store with ``d`` a multiple of 64 up to 768 and bins of 8-128
+    rows; "generic" (``csrc/fused_binmax.cu``) for everything else. Both
+    take any batch and any ``N`` the bin size divides."""
+    if (q_dtype == torch.bfloat16
+            and c_dtype in (torch.bfloat16, torch.int8)
+            and d % 64 == 0 and 0 < d <= SM90_MAX_DIM
+            and bin_rows in BIN_SIZES):
+        return "sm90"
+    return "generic"
+
+
 def fused_binmax(queries: torch.Tensor, corpus: torch.Tensor,
                  row_ids: torch.Tensor, bin_rows: int,
                  scales: Optional[torch.Tensor] = None
@@ -60,7 +92,8 @@ def fused_binmax(queries: torch.Tensor, corpus: torch.Tensor,
     """(scores [B, N] fp32 masked, bin maxima [B, N // bin_rows] fp32).
 
     CPU tensors take ``fused_binmax_plain``; CUDA tensors launch the
-    kernel, or raise on a shape or dtype it does not take."""
+    kernel ``kernel_route`` names, or raise on a shape or dtype it does
+    not take."""
     if queries.device.type == "cpu":
         return fused_binmax_plain(queries, corpus, row_ids, bin_rows, scales)
     if queries.device.type != "cuda":
@@ -69,14 +102,20 @@ def fused_binmax(queries: torch.Tensor, corpus: torch.Tensor,
                                  scales)
     bz, d = queries.shape
     n = corpus.shape[0]
-    if bin_rows not in (8, 16, 32, 64, 128) or n % bin_rows:
+    if bin_rows not in BIN_SIZES or n % bin_rows:
         raise ValueError(f"fused_binmax: bin_rows={bin_rows} must be a "
                          f"power of two in [8, 128] dividing N={n}")
+    route = kernel_route(queries.dtype, corpus.dtype, d, bin_rows)
+    if route == "sm90" and n >= 2**31:
+        raise ValueError(f"fused_binmax: N={n} rows (the sm90 kernel's "
+                         "tensor maps take fewer than 2^31)")
     dev = queries.device
     out_s = torch.empty((bz, n), dtype=torch.float32, device=dev)
     out_b = torch.empty((bz, n // bin_rows), dtype=torch.float32, device=dev)
+    stem = "fused_binmax_sm90" if route == "sm90" else "fused_binmax"
+    entry = f"{stem}_launch"
     _build.launch(
-        "fused_binmax", "fused_binmax_launch",
+        stem, entry,
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
@@ -84,6 +123,7 @@ def fused_binmax(queries: torch.Tensor, corpus: torch.Tensor,
         corpus.data_ptr(), _build.dtype_code(corpus.dtype),
         row_ids.data_ptr(), None if scales is None else scales.data_ptr(),
         out_s.data_ptr(), out_b.data_ptr(), bz, n, d, bin_rows, device=dev)
+    ENTRY_LAUNCHES[entry] += 1
     global LAUNCHES
     LAUNCHES += 1
     return out_s, out_b

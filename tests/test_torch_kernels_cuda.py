@@ -76,18 +76,120 @@ def test_extract_topk_equals_plain(c_dtype, rounds, rounds2):
         assert torch.equal(a, b)
 
 
+def _bits(x):
+    """fp32 as int32 bits: +0 and -0 differ (``_top_k`` orders +0 above
+    -0), as do NaN payloads."""
+    return x.view(torch.int32)
+
+
+def _k2_inputs(dev, bz, n, c_dtype, seed):
+    """Integer-valued K2 inputs with a zero query (its scores are exactly
+    zero sums, +0 in the plain version) and masked rows."""
+    q, c, ids, scales = _inputs(dev, bz, n, 768, c_dtype, seed)
+    if bz > 1:
+        q[bz // 2] = 0
+    ids[:8] = -1                   # a masked 8-row bin at the start
+    return q, c, ids, scales
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bz,n,bin_rows", [(200, 64_512, 128),
-                                           (64, 64_528, 16), (1, 64_520, 8)])
-def test_fused_binmax_equals_plain(bz, n, bin_rows):
-    """Ragged batches and a partial last row tile included."""
+@pytest.mark.parametrize("c_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bz", [1, 8, 200, 2048])
+@pytest.mark.parametrize("bin_rows", [8, 16, 32, 64, 128])
+def test_fused_binmax_equals_plain(c_dtype, bz, bin_rows):
+    """The sm90 route's scores and bin maxima EQUAL the plain version's,
+    bit for bit, on integer inputs: ragged batches (1, 8, 200) and the
+    wide batch (2048, several query blocks a row tile), every bin size,
+    and a partial last row tile (N % 128 = bin_rows below 128: 8, 16, 32
+    and 64 rows past the last full tile)."""
     dev = _device()
-    q, c, ids, scales = _inputs(dev, bz, n, 768, torch.int8, 1)
+    n = 64 * 1024 + bin_rows % 128
+    q, c, ids, scales = _k2_inputs(dev, bz, n, c_dtype, 1 + bin_rows)
+    assert k2.kernel_route(q.dtype, c.dtype, 768, bin_rows) == "sm90"
+    before = dict(k2.ENTRY_LAUNCHES)
     got = k2.fused_binmax(q, c, ids, bin_rows, scales)
     ref = k2.fused_binmax_plain(q, c, ids, bin_rows, scales)
     torch.cuda.synchronize()
+    assert k2.ENTRY_LAUNCHES["fused_binmax_sm90_launch"] == \
+        before["fused_binmax_sm90_launch"] + 1
+    assert k2.ENTRY_LAUNCHES["fused_binmax_launch"] == \
+        before["fused_binmax_launch"]
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bz,n,bin_rows", [(200, 64_512, 128),
+                                           (64, 64_528, 16), (1, 64_520, 8)])
+def test_fused_binmax_generic_route_gives_the_sm90_bits(c_dtype, bz, n,
+                                                        bin_rows, monkeypatch):
+    """fused_binmax.cu forced on the sm90 route's inputs gives the same
+    bits (integer inputs: every sum exact, zero sums +0)."""
+    dev = _device()
+    q, c, ids, scales = _k2_inputs(dev, bz, n, c_dtype, 2)
+    before = dict(k2.ENTRY_LAUNCHES)
+    new = k2.fused_binmax(q, c, ids, bin_rows, scales)
+    monkeypatch.setattr(k2, "kernel_route", lambda *a: "generic")
+    old = k2.fused_binmax(q, c, ids, bin_rows, scales)
+    torch.cuda.synchronize()
+    for name in before:
+        assert k2.ENTRY_LAUNCHES[name] == before[name] + 1
+    for a, b in zip(new, old):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_fused_binmax_sm90_agrees_on_normal_data_and_is_deterministic():
+    """Normal data: within 1e-5 of the largest score of the plain
+    version's (fp32 sums in another order); two launches, the same
+    bits."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = 40_000
+    q = torch.randn(300, 768, generator=g, device=dev).to(torch.bfloat16)
+    c = torch.randint(-127, 128, (n, 768), generator=g, device=dev,
+                      dtype=torch.int8)
+    scales = torch.rand(n, generator=g, device=dev) / 127
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids[::5] = -1
+    runs = [k2.fused_binmax(q, c, ids, 32, scales) for _ in range(2)]
+    ref = k2.fused_binmax_plain(q, c, ids, 32, scales)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(runs[0], ref):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert _rel(a[fin], b[fin]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,c_dtype,d,entry", [
+    (torch.bfloat16, torch.int8, 768, "fused_binmax_sm90_launch"),
+    (torch.bfloat16, torch.bfloat16, 64, "fused_binmax_sm90_launch"),
+    (torch.bfloat16, torch.int8, 320, "fused_binmax_sm90_launch"),
+    (torch.bfloat16, torch.bfloat16, 832, "fused_binmax_launch"),
+    (torch.bfloat16, torch.int8, 96, "fused_binmax_launch"),
+    (torch.bfloat16, torch.float32, 768, "fused_binmax_launch"),
+    (torch.float32, torch.float32, 768, "fused_binmax_launch"),
+])
+def test_fused_binmax_route_boundary_by_launch_name(q_dtype, c_dtype, d,
+                                                    entry):
+    """Each launch goes through the C entry point kernel_route names, and
+    either route EQUALS the plain version on integer inputs (depths of one
+    and five 64-deep chunks included)."""
+    dev = _device()
+    q, c, ids, scales = _inputs(dev, 130, 4104, d, c_dtype, 12)
+    q = q.to(q_dtype)
+    before = dict(k2.ENTRY_LAUNCHES)
+    got = k2.fused_binmax(q, c, ids, 8, scales)
+    ref = k2.fused_binmax_plain(q, c, ids, 8, scales)
+    torch.cuda.synchronize()
+    for name, count in k2.ENTRY_LAUNCHES.items():
+        assert count == before[name] + (name == entry)
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.cuda
@@ -102,6 +204,33 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take():
         k2.fused_binmax(q, c, ids, 100)
     with pytest.raises(ValueError):
         k2.fused_binmax(q, c.cpu(), ids, 128)
+    with pytest.raises(ValueError):             # bins past 128 rows
+        k2.fused_binmax(q, c, ids, 256)
+    with pytest.raises(ValueError):             # N not a multiple of the bin
+        k2.fused_binmax(q, c[:4000], ids[:4000], 64)
+    with pytest.raises(TypeError):              # fp16 queries
+        k2.fused_binmax(q.half(), c, ids, 128)
+    # the sm90 entry point itself refuses what its route never sends it:
+    # fp32 queries or store, D past 768 or not a multiple of 64, bins
+    # outside 8-128, an empty batch
+    from cldrd_tpu_torch.ops import _build
+
+    out_s = torch.empty(128, 4096, device=dev)
+    out_b = torch.empty(128, 4096 // 8, device=dev)
+    types = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int]
+    good = dict(qd=1, cd=1, b=128, d=768, bins=8)
+    for bad in (dict(qd=0), dict(cd=0), dict(d=832), dict(d=736),
+                dict(bins=256), dict(bins=4), dict(b=0)):
+        a = {**good, **bad}
+        with pytest.raises(RuntimeError):
+            _build.launch("fused_binmax_sm90", "fused_binmax_sm90_launch",
+                          types, q.data_ptr(), a["qd"], c.data_ptr(),
+                          a["cd"], ids.data_ptr(), None, out_s.data_ptr(),
+                          out_b.data_ptr(), a["b"], 4096, a["d"], a["bins"],
+                          device=dev)
 
 
 @pytest.mark.cuda
@@ -716,6 +845,7 @@ def test_built_kernels_have_no_wgmma_register_hazards():
     counts = _wgmma_check.check_libraries(paths.values())
     hgmma = {name.split("-")[0]: n for name, n in counts.items()}
     assert hgmma["extract_topk_sm90"] > 0 and hgmma["attention_sm90"] > 0
+    assert hgmma["fused_binmax_sm90"] > 0
 
 
 @pytest.mark.cuda

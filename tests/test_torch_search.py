@@ -398,3 +398,85 @@ def test_every_main_path_k1_launch_takes_sm90(hbm_dtype, n, nq, batch):
         assert mips._extract_eligible(bz, n, bin_rows)
         assert bz % 64 == 0
         assert k1.kernel_route(q_dtype, hbm_dtype, 768, bin_rows) == "sm90"
+
+
+_K2_SM90 = [(q, c, d, b, "sm90")
+            for q, c in ((torch.bfloat16, torch.bfloat16),
+                         (torch.bfloat16, torch.int8))
+            for d in (768, 64, 320)
+            for b in (8, 16, 32, 64, 128)]
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype,d,bin_rows,route", _K2_SM90 + [
+    (torch.bfloat16, torch.float32, 768, 128, "generic"),
+    (torch.float32, torch.float32, 768, 128, "generic"),
+    (torch.float32, torch.int8, 768, 8, "generic"),
+    (torch.float32, torch.bfloat16, 768, 16, "generic"),
+    (torch.bfloat16, torch.int8, 832, 128, "generic"),   # D > 768
+    (torch.bfloat16, torch.bfloat16, 96, 8, "generic"),  # D % 64
+    (torch.bfloat16, torch.int8, 32, 64, "generic"),
+    (torch.bfloat16, torch.int8, 768, 256, "generic"),   # no such bin
+])
+def test_k2_kernel_route_by_dtype_and_shape(q_dtype, c_dtype, d, bin_rows,
+                                            route):
+    """Which K2 kernel a launch takes is a function of dtypes, width and
+    bin size alone (any batch, any N the bin divides), pinned here without
+    a card."""
+    assert k2.kernel_route(q_dtype, c_dtype, d, bin_rows) == route
+
+
+@pytest.mark.parametrize("hbm_dtype,n,batch", [
+    (torch.int8, 8_847_360, 2048),     # search_batched(batch_size=2048)
+    (torch.int8, 8_847_360, 1152),
+    (torch.bfloat16, 1_048_576, 200),  # a ragged topk_binmax batch
+    (torch.bfloat16, 1_048_576 + 16, 512),  # a store off the 2048 grid
+])
+def test_every_main_path_k2_launch_takes_sm90(hbm_dtype, n, batch):
+    """Batches the extract route does not take reach K2 through the
+    portable route, and at the main path's widths and stores every such
+    launch takes the sm90 kernel."""
+    from cldrd_tpu_torch.index.flat_index import query_dtype_for
+
+    q_dtype = query_dtype_for(hbm_dtype, "default")
+    bin_rows = 128
+    while bin_rows > 8 and n % bin_rows:
+        bin_rows //= 2
+    assert not mips._extract_eligible(batch, n, bin_rows)
+    assert k2.kernel_route(q_dtype, hbm_dtype, 768, bin_rows) == "sm90"
+
+
+def test_wide_batch_portable_route_matches_jax():
+    """A batch over 1,024 (1,152, a multiple of 128) is not the extract
+    route's: topk_binmax and FlatIPIndex.search_batched take the portable
+    route (K2's plain version on the CPU) and EQUAL the JAX package's
+    topk_binmax, ok flags included, over an int8 store with row scales;
+    rows a certificate does not cover are re-scanned exactly."""
+    from cldrd_tpu_torch.index import FlatIPIndex
+
+    rng = np.random.default_rng(11)
+    bz, n, d, k = 1152, 8192, 32, 40
+    q = rng.integers(-4, 5, (bz, d)).astype(np.float32)
+    codes = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    scales = rng.uniform(0.5, 1.5, n).astype(np.float32) / 127
+    ids = np.arange(n, dtype=np.int32)
+    ids[100:140] = -1
+    assert not mips._extract_eligible(bz, n, 128)
+    jv, ji, jok = _jax_topk(q, codes, ids, k, jnp.bfloat16, scales,
+                            on_miss="flag")
+    tv, ti, tok = _torch_topk(q, codes, ids, k, torch.bfloat16, scales,
+                              on_miss="flag")
+    np.testing.assert_array_equal(tok, jok)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tv, jv)
+    # the index: batch_size 1152 keeps the batch whole
+    index = FlatIPIndex.build_quantized(codes, scales,
+                                        np.arange(n, dtype=np.int64),
+                                        block_rows=2048, device="cpu")
+    index.row_ids[100:140] = -1
+    bs, bi = index.search_batched(q, k, batch_size=bz)
+    assert index.rescued_queries == int((~jok).sum())
+    np.testing.assert_array_equal(bi[jok], ji[jok])
+    np.testing.assert_array_equal(bs[jok], jv[jok])
+    ref_v, ref_p = _oracle(q, codes, k, ids, scales)
+    np.testing.assert_array_equal(bi, np.where(np.isfinite(ref_v), ref_p, -1))
+    np.testing.assert_array_equal(bs, ref_v)
