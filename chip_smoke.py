@@ -51,12 +51,13 @@ Phases (each raises on any failure; the script then exits non-zero):
    queries against bf16 and int8 stores (fused_binmax.cu for fp32) and
    is timed at B=512 over 1M bf16 rows and at B=2048 over the int8
    store's first 1,769,472 rows (scales) beside fused_binmax.cu forced on
-   the same inputs, its plain version and a bare bf16 torch.matmul. K5 takes attention_infer.cu at the query
-   encode (B=512, L=30) and the sm90 forward at B=240, L=256, each held
-   to its plain version with the query tower's padding (EQUAL on exact
-   inputs) and timed beside attention.cu's tiled forward forced on the
-   same inputs and SDPA. Every time in the kernels line is a device
-   time: the summed durations of the kernels one call launches
+   the same inputs, its plain version and a bare bf16 torch.matmul. K5
+   takes attention_infer.cu at the query encode (B=512, L=30) and the
+   sm90 forward at B=240, L=256, each held to its plain version with
+   the query tower's padding (EQUAL on exact inputs) and timed beside
+   attention.cu's tiled forward forced on the same inputs and SDPA.
+   Every time in the kernels line is a device time: the summed
+   durations of the kernels one call launches
    (torch.profiler; a trace whose kernel counts show lost records is
    taken again).
 3. search: FlatIPIndex stood up on the device at MS MARCO scale
@@ -429,7 +430,7 @@ def _close_by_rows(tag, got, ref, rtol=1e-5, rows=256):
 def _compare_k2_on(ctx, tag, q, c, ids, scales, bin_rows, integer):
     """K2 against its plain version on the same inputs. Integer-valued
     inputs: EQUAL bit for bit (a zero sum is +0 in both). Normal data:
-    within 1e-5 of the largest score. Counts the launch by entry point."""
+    within 1e-5 of the largest score. The tag names the route taken."""
     from cldrd_tpu_torch.ops import fused_binmax as k2
 
     tag = (f"K2 {tag} B={q.shape[0]} N={c.shape[0]} {str(c.dtype)[6:]} "
@@ -472,7 +473,10 @@ def _time_k2(ctx, tag, q, c, ids, scales, bin_rows=128):
     device time beside fused_binmax.cu forced on the same inputs, the
     plain version, the bare bf16 torch.matmul score product (no one
     PyTorch call computes K2's function) and the bound."""
-    from cldrd_tpu_torch.ops.fused_binmax import fused_binmax, fused_binmax_plain
+    from cldrd_tpu_torch.ops.fused_binmax import (
+        fused_binmax,
+        fused_binmax_plain,
+    )
 
     bz, n = q.shape[0], c.shape[0]
     _compare_k2_on(ctx, tag, q, c, ids, scales, bin_rows, integer=False)

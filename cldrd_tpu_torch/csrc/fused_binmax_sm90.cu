@@ -1,11 +1,11 @@
 // K2 for Hopper (sm_90a): masked fp32 scores [B, N] and the maximum of
 // every bin of bin_rows rows [B, N / bin_rows], in one pass. The route of
 // every bf16-query launch against a bf16 or int8 store with D a multiple
-// of 64 up to 768 and bins of 8-128 rows, any B >= 1 and any N the bin
-// size divides (ops/fused_binmax.py::kernel_route): the portable search
-// route's batches over 1,024 (FlatIPIndex.search_batched with a wide
-// batch_size) and its ragged batches. fp32 operands and other widths keep
-// fused_binmax.cu.
+// of 64 from 128 to 768 and bins of 8-128 rows, any B >= 1 and any N the
+// bin size divides (ops/fused_binmax.py::kernel_route): the portable
+// search route's batches over 1,024 (FlatIPIndex.search_batched with a
+// wide batch_size) and its ragged batches. fp32 operands and other widths
+// keep fused_binmax.cu.
 //
 // Replaces the TPU kernel cldrd_tpu/search/mips.py::_fused_kernel_factory
 // (:361, launched by _scores_and_binmax at :442). The function is
@@ -23,53 +23,52 @@
 //
 // Design, against fused_binmax.cu's three limits:
 // - Products are wgmma m64n128k16 (bf16 in, fp32 accumulate) with both
-//   operands in 128-byte-swizzled shared memory: the block's 64 queries
-//   on the M side (A), 128 store rows on the N side (B). The accumulator
-//   is query-major like the output: a thread holds 2 queries x 32 rows
-//   (rows 8j + 2t, 8j + 2t + 1 of the tile), so a bin of 8-128 rows
-//   reduces in registers and two quad shuffles, with no transpose.
-// - The queries (96 KB at D=768) arrive once per block by TMA and stay
-//   resident while the block walks a stripe of 32 row tiles; adjacent
-//   blocks are the stripe's query blocks, so the B/64 reads of a row tile
-//   fall close together in time and all but the first hit in L2.
-// - Warp roles: two consumer warpgroups take alternate row tiles of the
-//   stripe, each fed by its own ring of 64-deep chunks (16 KB a stage)
-//   with FULL / EMPTY mbarriers; a producer warpgroup fills the rings:
-//   bf16 chunks by one 2-D TMA copy each (rows past N zero-filled), int8
-//   chunks by a second producer warpgroup, so four warps a ring, that
-//   load the codes three chunks ahead in registers (rows past N load as
-//   zeros) and widen them into the same
-//   swizzled bf16 layout (widen4: byte permutes and bf16x2 subtractions,
-//   exact), so the wgmma warps never widen. The producer also writes each
-//   tile's row factors (scale, or a mask marker for id < 0 and rows past
-//   N) before the tile's last chunk is marked full. For int8 it also
-//   sends, at each tile's first chunk, the ring's next tile (one
-//   contiguous span of the store) to L2 by a bulk prefetch: a stripe's 32
-//   blocks at B=2048 reach a chunk together, and without it they all
-//   waited on device memory for it (bf16 is faster without: its TMA
-//   loads are already in flight four stages deep).
-// - Epilogue: the consumer scales and masks its accumulators in
-//   registers, writes them into the tile's last ring stage, once the
-//   products have read it, as [64][32] fp32 boxes under the 128-byte
-//   swizzle (a warp's 8 query rows then do not share a bank), half a tile
-//   at a time, and one thread issues cp.async.bulk.tensor stores, which
-//   clip the box at B and N. The warpgroup reduces the bin maxima from
-//   the same registers while the second half drains, and hands the stage
-//   back once the stores have read it (cp.async.bulk.wait_group.read):
-//   no staging buffer of its own, so the rings get a fourth stage. Each
-//   tile's scores are written once; nothing re-reads them.
-// - Barriers count warps: a warp's lanes order their shared-memory
-//   accesses with __syncwarp and lane 0 arrives (4 consumer arrivals a
-//   stage, not 128).
-// Measured parts (tools/k2_variants.py; PERF.md has the runs): the
-// products are a small share; the feed (TMA latency for bf16, the
-// producer warps for int8) and the epilogue set the time.
-// Shared memory at D=768: queries 96 KB, 2 rings x 4 stages x 16 KB =
-// 128 KB, row factors 2 x 512 B, mbarriers, 1 KB of alignment: 231,680
-// bytes of the 232,448 a block may take (one block an SM). The rings
-// take at most 4 stages and at most the chunks of the depth, which keeps
-// a ring's single row-factor buffer from being overwritten before it is
-// read.
+//   operands in 128-byte-swizzled shared memory: 64 queries on the M side
+//   (A), 128 store rows on the N side (B). The accumulator is query-major
+//   like the output: a thread holds 2 queries x 32 rows (rows 8j + 2t,
+//   8j + 2t + 1 of the tile), so a bin of 8-128 rows reduces in registers
+//   and two quad shuffles, with no transpose.
+// - A block takes 128 queries, one 64-query half per consumer
+//   warpgroup, and walks a stripe of 32 row tiles; both warpgroups read
+//   every 64-deep chunk of a row tile from the same ring stage, so a row
+//   tile is fed (by TMA, or widened from int8) once per 128 queries.
+//   Adjacent blocks are the stripe's query blocks, so the B/128 reads of
+//   a row tile fall close together in time and all but the first hit in
+//   L2. The queries are not resident: each stage also carries the
+//   chunk's 128 queries (16 KB by TMA, from L2: the queries are 3 MB at
+//   B=2048). Resident, 64 of them took 96 KB at D=768, which left a 4-stage
+//   ring for each warpgroup's own tiles, and every row tile was fed once
+//   per 64 queries; measured, the feed and not the products set the time
+//   (tools/k2_variants.py; PERF.md has the runs).
+// - Warp roles: a ring of up to 7 stages (32 KB: the chunk's queries and
+//   rows) with FULL / EMPTY mbarriers, filled by a producer warpgroup (two
+//   for int8): one thread issues the TMA copies (rows past N and queries
+//   past B zero-filled); int8 codes are loaded by the producer's threads
+//   three chunks ahead in registers (rows past N load as zeros) and
+//   widened into the same swizzled bf16 layout (widen4: byte permutes and
+//   bf16x2 subtractions, exact), so the wgmma warps never widen. The
+//   producer also writes each tile's row factors ((scale, +0), or
+//   (0, -inf) for id < 0 and rows past N) before the tile's last chunk is
+//   marked full, and for int8 sends the next tile (one contiguous span of
+//   the store) to L2 by a bulk prefetch at each tile's first chunk: a stripe's
+//   blocks reach a chunk together, and without it they all waited on
+//   device memory for it. Barriers count warps: a warp's lanes order their
+//   shared-memory accesses with __syncwarp and lane 0 arrives.
+// - Epilogue: each consumer scales and masks its accumulators in
+//   registers and writes them, once both warpgroups' products have read
+//   the tile's last two stages, into its 32 KB of those stages as four
+//   [64][32] fp32 boxes under the 128-byte swizzle (a warp's 8 query rows
+//   then do not share a bank); one thread issues cp.async.bulk.tensor
+//   stores, which clip the box at B and N. The warpgroup reduces the bin
+//   maxima from the same registers while the stores drain, and hands the
+//   two stages back once the stores have read them
+//   (cp.async.bulk.wait_group.read). Each tile's scores are written once;
+//   nothing re-reads them.
+// Shared memory at D=768: 7 stages x 32 KB, the row factors (1 KB),
+// mbarriers, 1 KB of alignment: 231,680 bytes of the 232,448 a block may
+// take (one block an SM). The ring takes at most the chunks of the depth
+// (D >= 128: two stages hold the epilogue), which keeps the single
+// row-factor buffer from being overwritten before it is read.
 #include <cuda.h>  // CUtensorMap (types only: the encoder is looked up)
 #include <cuda_bf16.h>
 #include <math.h>
@@ -82,33 +81,32 @@ namespace cldrd_k2_90 {
 using cldrd::allow_dynamic_smem;
 using cldrd::MAX_DEVICES;
 
-constexpr int QB = 64;         // queries per block (wgmma M)
+constexpr int QB = 128;        // queries per block, 64 a consumer (wgmma M)
 constexpr int TILE = 128;      // store rows per tile (wgmma N)
 constexpr int KC = 64;         // depth of a chunk (128 bytes of bf16)
-constexpr int MAX_D = 768;
+constexpr int MIN_D = 128, MAX_D = 768;
 // 2 consumer warpgroups and the producer: one warpgroup for bf16 (TMA),
-// two for int8 (widening); FEED producer threads per ring
+// two for int8 (widening)
 __host__ __device__ constexpr int threads_for(bool i8) {
   return i8 ? 512 : 384;
 }
-__host__ __device__ constexpr int feed_for(bool i8) { return i8 ? 128 : 64; }
-constexpr int Q_TILE = QB * 128;     // 8 KB: one chunk of the queries
-constexpr int STAGE = TILE * 128;    // 16 KB: one chunk of a row tile
-constexpr int BOX = QB * 128;        // 8 KB: [64 queries][32 scores] fp32
-constexpr int SIDE = TILE * 4;       // a ring's row factors
+__host__ __device__ constexpr int feed_for(bool i8) { return i8 ? 256 : 128; }
+constexpr int Q_PART = QB * 128;     // 16 KB: a chunk of the queries
+constexpr int STAGE = 2 * Q_PART;    // 32 KB: the chunk's queries, rows
+constexpr int BOX = 64 * 128;        // 8 KB: [64 queries][32 scores] fp32
+constexpr int SIDE = TILE * 8;       // a tile's row factors
 constexpr int BARS = 256;            // mbarrier area
-constexpr int MAX_STAGES = 4;
+constexpr int MAX_STAGES = 8;
 constexpr int TILES_PER_BLOCK = 32;  // a stripe
 constexpr int SMEM_LIMIT = 232448;
-constexpr uint32_t MASKED = 0xFFFFFFFFu;  // row factor of a masked row
 
-// bytes of everything but the rings, alignment slack included
-__host__ __device__ constexpr int fixed_bytes(int D) {
-  return 1024 + (D / KC) * Q_TILE + 2 * SIDE + BARS;
+// bytes of everything but the ring, alignment slack included
+__host__ __device__ constexpr int fixed_bytes() {
+  return 1024 + SIDE + BARS;
 }
-// ring stages for a depth D (0 if none fit)
+// ring stages for a depth D
 __host__ __device__ constexpr int stages_for(int D) {
-  const int fit = (SMEM_LIMIT - fixed_bytes(D)) / (2 * STAGE);
+  const int fit = (SMEM_LIMIT - fixed_bytes()) / STAGE;
   const int s = fit < MAX_STAGES ? fit : MAX_STAGES;
   return s < D / KC ? s : D / KC;
 }
@@ -286,69 +284,63 @@ __device__ __forceinline__ void st_shared_v2f(uint32_t addr, float a,
                "f"(b)
                : "memory");
 }
-// consumer warpgroup wg's own barrier (0 is __syncthreads)
+// consumer warpgroup wg's own barrier; both consumers' barrier (0 is
+// __syncthreads)
 __device__ __forceinline__ void wg_bar(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+__device__ __forceinline__ void consumers_bar() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------------- kernel
 
-// A ring's view of the stripe: tiles t0 + w, t0 + w + 2, ... below t1,
-// NC chunks each, item n = tile index * NC + chunk.
-struct Stripe {
-  int t0, t1, w, NC;
-  __device__ int tiles() const {
-    return t1 > t0 + w ? (t1 - t0 - w + 1) / 2 : 0;
-  }
-  __device__ int tile(int n) const { return t0 + w + 2 * (n / NC); }
-};
-
-// The producer of ring w (thread p of its FEED): marks each item's stage
-// full once its chunk and, for a tile's last chunk, the tile's row
-// factors are in shared memory.
+// The producer (thread p of its FEED): marks each item's stage full once
+// the chunk's queries and rows and, for a tile's last chunk, the tile's
+// row factors are in shared memory. Item n is chunk n % NC of tile
+// t0 + n / NC.
 template <bool I8>
 __device__ __forceinline__ void produce(
-    const CUtensorMap* map_c, const int8_t* __restrict__ c8,
-    const int* __restrict__ ids, const float* __restrict__ scales, int N,
-    int D, const Stripe& sp, int S, int p, uint32_t ring, uint32_t full,
-    uint32_t empty, float* side) {
+    const CUtensorMap* map_q, const CUtensorMap* map_c,
+    const int8_t* __restrict__ c8, const int* __restrict__ ids,
+    const float* __restrict__ scales, int N, int D, int q0, int t0, int t1,
+    int S, int p, uint32_t ring, uint32_t full, uint32_t empty,
+    float* side) {
   constexpr int FEED = feed_for(I8);
-  constexpr int ROWS = TILE / FEED;  // a thread's rows of the row factors
-  const int NC = sp.NC;
-  const int total = sp.tiles() * NC;
-  // a tile's rows are one contiguous span of the store: at each tile's
-  // first chunk, the ring's next tile goes to L2, so that the stripe's
-  // blocks, which reach a chunk together, find it there rather than all
-  // waiting on device memory
-  const long long row_bytes = (long long)D * (I8 ? 1 : 2);
-  auto prefetch_next = [&](int tile) {
-    const int next = tile + 2;
-    if (I8 && p == 0 && next < sp.t1) {
-      const int r0 = next * TILE, r1 = min(N, r0 + TILE);
-      prefetch_l2(c8 + r0 * row_bytes, (uint32_t)((r1 - r0) * row_bytes));
-    }
-  };
+  const int NC = D / KC;
+  const int total = (t1 - t0) * NC;
   int s = 0;
   uint32_t ph = 0;
-  int id_raw[ROWS];
-  float sc_raw[ROWS];
-  // the row factors of rows p + FEED h of a tile: loaded at its first
-  // chunk, written at its last
+  // the row factors of row p of a tile (threads p < TILE): loaded at its
+  // first chunk, written at its last as (scale, +0), or (0, -inf) for a
+  // masked row or one past N
+  int id_raw = -1;
+  float sc_raw = 1.f;
   auto side_load = [&](int tile) {
-#pragma unroll
-    for (int h = 0; h < ROWS; ++h) {
-      const int r = tile * TILE + p + FEED * h;
-      id_raw[h] = r < N ? __ldg(ids + r) : -1;
-      sc_raw[h] = (r < N && scales != nullptr) ? __ldg(scales + r) : 1.f;
+    const int r = tile * TILE + p;
+    if (p < TILE) {
+      id_raw = r < N ? __ldg(ids + r) : -1;
+      sc_raw = (r < N && scales != nullptr) ? __ldg(scales + r) : 1.f;
     }
   };
   auto side_store = [&]() {
-#pragma unroll
-    for (int h = 0; h < ROWS; ++h)
-      side[p + FEED * h] =
-          id_raw[h] >= 0 ? sc_raw[h] : __uint_as_float(MASKED);
+    if (p < TILE)
+      reinterpret_cast<float2*>(side)[p] = id_raw >= 0
+                                               ? make_float2(sc_raw, 0.f)
+                                               : make_float2(0.f, -INFINITY);
   };
-  auto advance = [&]() {
+  // one arrival a warp; thread 0's carries the stage's TMA bytes
+  auto mark_full = [&](int tile, int k) {
+    __syncwarp();
+    if (p == 0) {
+      const uint32_t st = ring + s * STAGE;
+      mbar_expect_tx(full + 8 * s, I8 ? Q_PART : STAGE);
+      tma_load(st, map_q, k * KC, q0, full + 8 * s);
+      if (!I8)
+        tma_load(st + Q_PART, map_c, k * KC, tile * TILE, full + 8 * s);
+    } else if ((p & 31) == 0) {
+      mbar_arrive(full + 8 * s);
+    }
     if (++s == S) {
       s = 0;
       ph ^= 1;
@@ -357,33 +349,24 @@ __device__ __forceinline__ void produce(
 
   if constexpr (!I8) {
     for (int n = 0; n < total; ++n) {
-      const int tile = sp.tile(n), k = n % NC;
-      if (k == 0) {
-        side_load(tile);
-        prefetch_next(tile);
-      }
+      const int tile = t0 + n / NC, k = n % NC;
+      if (k == 0) side_load(tile);
       mbar_wait<true>(empty + 8 * s, ph ^ 1);
       if (k == NC - 1) side_store();
-      __syncwarp();
-      if (p == 0) {
-        mbar_expect_tx(full + 8 * s, STAGE);
-        tma_load(ring + s * STAGE, map_c, k * KC, tile * TILE, full + 8 * s);
-      } else if ((p & 31) == 0) {
-        mbar_arrive(full + 8 * s);
-      }
-      advance();
+      mark_full(tile, k);
     }
   } else {
-    // thread p loads codes 16 (p & 3) .. + 15 of rows p / 4 + 32 j of a
-    // chunk (j < 4), AHEAD items ahead, and widens them into the chunk's
+    // thread p loads codes 16 (p & 3) .. + 15 of rows p / 4 and p / 4 + 64
+    // of a chunk, AHEAD items ahead, and widens them into the chunk's
     // 16-byte groups 2 (p & 3) and + 1 of each row, swizzled
     constexpr int AHEAD = 3;
     constexpr int PIECES = TILE * 4 / FEED;  // 16-byte pieces a thread
+    const long long row_bytes = D;
     const int rr = p >> 2, cq = p & 3;
     int f_n = 0;
     auto fetch = [&](uint4 (&dst)[PIECES]) {
       if (f_n < total) {
-        const long long r0 = (long long)sp.tile(f_n) * TILE + rr;
+        const long long r0 = (long long)(t0 + f_n / NC) * TILE + rr;
         const int col = (f_n % NC) * KC + 16 * cq;
 #pragma unroll
         for (int j = 0; j < PIECES; ++j) {
@@ -403,13 +386,18 @@ __device__ __forceinline__ void produce(
       for (int jj = 0; jj < AHEAD; ++jj) {
         const int n = n0 + jj;
         if (n < total) {
-          const int tile = sp.tile(n), k = n % NC;
+          const int tile = t0 + n / NC, k = n % NC;
           if (k == 0) {
             side_load(tile);
-            prefetch_next(tile);
+            // the next tile's rows, one contiguous span, into L2
+            if (p == 0 && tile + 1 < t1) {
+              const int r0 = (tile + 1) * TILE, r1 = min(N, r0 + TILE);
+              prefetch_l2(c8 + r0 * row_bytes,
+                          (uint32_t)((r1 - r0) * row_bytes));
+            }
           }
           mbar_wait<true>(empty + 8 * s, ph ^ 1);
-          const uint32_t st = ring + s * STAGE;
+          const uint32_t st = ring + s * STAGE + Q_PART;
 #pragma unroll
           for (int j = 0; j < PIECES; ++j) {
             const int row = rr + (FEED / 4) * j;
@@ -425,9 +413,8 @@ __device__ __forceinline__ void produce(
           }
           if (k == NC - 1) side_store();
           fence_async_smem();  // the widened chunk is wgmma's to read
-          mbar_arrive_warp(full + 8 * s);
+          mark_full(tile, k);
           fetch(raw[jj]);
-          advance();
         }
       }
     }
@@ -449,13 +436,11 @@ fused_binmax_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t base = (raw_base + 1023u) & ~1023u;  // swizzle atoms: 1 KB
   unsigned char* sm = smem_raw + (base - raw_base);
   const int NC = D / KC;
-  const uint32_t sQ = base;
-  const uint32_t sRing = sQ + NC * Q_TILE;
-  const uint32_t sSide = sRing + 2 * S * STAGE;
-  const uint32_t sBar = sSide + 2 * SIDE;
-  // full(w, s) at sBar + 8 (w MAX_STAGES + s), empty 64 bytes on, the
-  // queries' barrier at sBar + 128
-  const uint32_t qbar = sBar + 128;
+  const uint32_t ring = base;
+  const uint32_t sSide = ring + S * STAGE;
+  // full(s) at sBar + 8 s, empty(s) at sBar + 64 + 8 s
+  const uint32_t full = sSide + SIDE, empty = full + 64;
+  float* side = reinterpret_cast<float*>(sm + (sSide - base));
 
   const int nqb = (B + QB - 1) / QB;
   const int q0 = (blockIdx.x % nqb) * QB;
@@ -466,58 +451,46 @@ fused_binmax_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x, wg = tid >> 7;
 
   if (tid == 0) {
-    for (int i = 0; i < 2 * MAX_STAGES; ++i) {
-      mbar_init(sBar + 8 * i, feed_for(I8) / 32);  // producer warps
-      mbar_init(sBar + 64 + 8 * i, 4);             // consumer warps
+    for (int i = 0; i < MAX_STAGES; ++i) {
+      mbar_init(full + 8 * i, feed_for(I8) / 32);  // producer warps
+      mbar_init(empty + 8 * i, 8);                 // consumer warps
     }
-    mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg >= 2) {  // the producer: each ring's FEED threads in turn
-    const int p = (tid - 256) % feed_for(I8);
-    const int w = (tid - 256) / feed_for(I8);
-    if (tid == 256) {  // the block's queries, once; rows past B are zeros
-      mbar_expect_tx(qbar, NC * Q_TILE);
-      for (int k = 0; k < NC; ++k)
-        tma_load(sQ + k * Q_TILE, &map_q, k * KC, q0, qbar);
-    }
-    const Stripe sp{t0, t1, w, NC};
-    float* side = reinterpret_cast<float*>(sm + (sSide - base)) + w * TILE;
-    produce<I8>(&map_c, c8, ids, scales, N, D, sp, S, p,
-                sRing + w * S * STAGE, sBar + 8 * w * MAX_STAGES,
-                sBar + 64 + 8 * w * MAX_STAGES, side);
+  if (wg >= 2) {
+    produce<I8>(&map_q, &map_c, c8, ids, scales, N, D, q0, t0, t1, S,
+                tid - 256, ring, full, empty, side);
     return;
   }
 
-  // consumer warpgroup wg: tiles t0 + wg, t0 + wg + 2, ...
+  // consumer warpgroup wg: queries q0 + 64 wg .. + 63 of every tile
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             t = lane & 3, lead = (tid & 127) == 0;
-  const uint32_t ring = sRing + wg * S * STAGE;
-  const uint32_t full = sBar + 8 * wg * MAX_STAGES;
-  const uint32_t empty = full + 64;
-  const float* side = reinterpret_cast<const float*>(sm + (sSide - base)) +
-                      wg * TILE;
   const int G = bin_rows / 8;  // 8-row column groups a bin
   const int nbins = N / bin_rows;
+  const int qw = q0 + 64 * wg;
   float acc[64];
   int s = 0;
   uint32_t ph = 0;
-  mbar_wait<false>(qbar, 0);
-  for (int tile = t0 + wg; tile < t1; tile += 2) {
-    int prev = -1;
+  for (int tile = t0; tile < t1; ++tile) {
+    int prev = -1, held = -1;  // held: the last chunk but one's stage
     for (int k = 0; k < NC; ++k) {
       mbar_wait<false>(full + 8 * s, ph);
+      const uint32_t st = ring + s * STAGE;
       wg_fence();
 #pragma unroll
-      for (int st = 0; st < KC / 16; ++st)
-        mma_n128(acc, sdesc(sQ + k * Q_TILE + st * 32),
-                 sdesc(ring + s * STAGE + st * 32), (k | st) != 0);
+      for (int kk = 0; kk < KC / 16; ++kk)
+        mma_n128(acc, sdesc(st + wg * BOX + kk * 32),
+                 sdesc(st + Q_PART + kk * 32), (k | kk) != 0);
       wg_commit();
-      if (prev >= 0) {  // the chunk before is done: its stage is free
-        wg_wait<1>();
-        mbar_arrive_warp(empty + 8 * prev);
+      if (prev >= 0) {  // the chunk before is done: its stage is free,
+        wg_wait<1>();   // but the last chunk but one's stage holds scores
+        if (k < NC - 1)
+          mbar_arrive_warp(empty + 8 * prev);
+        else
+          held = prev;
       }
       prev = s;
       if (++s == S) {
@@ -527,50 +500,47 @@ fused_binmax_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     wg_wait<0>();
     fence_regs(acc);
-    // scale after the dot (+0 for an exactly zero sum), mask: the row
-    // factors of the thread's columns 8j + 2t + e, read before the last
-    // stage is released (the producer rewrites them after it)
+    // scale after the dot and mask in one rounding: fma(dot, scale, +0)
+    // is dot * scale rounded once, and +0 for an exactly zero sum;
+    // fma(dot, 0, -inf) is -inf. The row factors of the thread's columns
+    // 8j + 2t + e are read before the stages are released (the producer
+    // rewrites them after that)
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const float2 v = *reinterpret_cast<const float2*>(side + 8 * j + 2 * t);
+      const float4 v = *reinterpret_cast<const float4*>(side + 16 * j + 4 * t);
 #pragma unroll
-      for (int i = 4 * j; i < 4 * j + 4; ++i) {
-        const float fv = (i & 1) ? v.y : v.x;
-        acc[i] = __float_as_uint(fv) == MASKED ? -INFINITY
-                                               : (acc[i] + 0.0f) * fv;
+      for (int x = 0; x < 2; ++x) {
+        acc[4 * j + 2 * x] = fmaf(acc[4 * j + 2 * x], v.x, v.y);
+        acc[4 * j + 2 * x + 1] = fmaf(acc[4 * j + 2 * x + 1], v.z, v.w);
       }
     }
-    // scores out by TMA from the tile's last stage, whose chunk the
-    // products have read (wait 0): one half tile (two [64][32] boxes,
-    // 16 KB) at a time. Box b holds columns 32b .. 32b + 31, query row q
-    // at q * 128, 16-byte group (column / 4) ^ (q & 7); q & 7 is g
+    // scores out by TMA through the tile's last two stages, which both
+    // consumers' products have read once both pass this barrier: this
+    // warpgroup's boxes 0-1 at 32 KB wg of the last chunk but one's stage
+    // and 2-3 in the last's. Box b holds columns 32b .. 32b + 31, query
+    // row q at q * 128, 16-byte group (column / 4) ^ (q & 7); q & 7 is g
+    consumers_bar();
     const int r0 = tile * TILE;
-    const uint32_t stg = ring + prev * STAGE;
+    const uint32_t stg[2] = {ring + held * STAGE + wg * 2 * BOX,
+                             ring + prev * STAGE + wg * 2 * BOX};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (h == 1) {  // the first half's stores have read the stage
-        if (lead) bulk_wait_read0();
-        wg_bar(wg);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t box = stg[j >> 3] + ((j >> 2) & 1) * BOX;
+      const int chunk = 2 * (j & 3) + (t >> 1);
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = 8 * h + jj;
-        const uint32_t box = stg + (jj >> 2) * BOX;
-        const int chunk = 2 * (jj & 3) + (t >> 1);
+      for (int x = 0; x < 2; ++x) {
+        const int ql = 16 * warp + g + 8 * x;
+        st_shared_v2f(box + ql * 128 + ((chunk ^ g) << 4) + 8 * (t & 1),
+                      acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
+      }
+    }
+    fence_async_smem();  // the boxes are the bulk stores' to read
+    wg_bar(wg);
+    if (lead) {
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int ql = 16 * warp + g + 8 * x;
-          st_shared_v2f(box + ql * 128 + ((chunk ^ g) << 4) + 8 * (t & 1),
-                        acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
-        }
-      }
-      fence_async_smem();  // the boxes are the bulk stores' to read
-      wg_bar(wg);
-      if (lead) {
-        tma_store(&map_s, r0 + 64 * h, q0, stg);
-        tma_store(&map_s, r0 + 64 * h + 32, q0, stg + BOX);
-        bulk_commit();
-      }
+      for (int b = 0; b < 4; ++b)
+        tma_store(&map_s, r0 + 32 * b, qw, stg[b >> 1] + (b & 1) * BOX);
+      bulk_commit();
     }
     // bin maxima: a thread's maximum over each bin's columns (its two of
     // every 8-column group), then over the lane quad
@@ -596,16 +566,17 @@ fused_binmax_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         float v = acc[4 * j + 2 * x];
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-        const int q = q0 + 16 * warp + g + 8 * x;
+        const int q = qw + 16 * warp + g + 8 * x;
         const int bin = r0 / bin_rows + j / G;
         if (((j / G) & 3) == t && q < B && bin < nbins)
           out_b[(long long)q * nbins + bin] = v;
       }
     }
-    // the second half's stores have read the stage: it goes back to the
-    // producer
+    // the stores have read this warpgroup's boxes: its share of the two
+    // stages goes back to the producer
     if (lead) bulk_wait_read0();
     wg_bar(wg);
+    mbar_arrive_warp(empty + 8 * held);
     mbar_arrive_warp(empty + 8 * prev);
   }
   if (lead) bulk_wait0();  // the scores are written
@@ -669,10 +640,10 @@ int run(const void* q, const void* c, const int* ids, const float* scales,
                    2ll * D, KC, TILE);
   if (!err)
     err = make_map(&map_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out_s, N, B,
-                   4ll * N, 32, QB);
+                   4ll * N, 32, 64);
   if (err) return err;
   const int S = stages_for(D);
-  const int smem = fixed_bytes(D) + 2 * S * STAGE;
+  const int smem = fixed_bytes() + S * STAGE;
   const int nt = (N + TILE - 1) / TILE;
   const long long nblocks =
       (long long)((B + QB - 1) / QB) *
@@ -688,8 +659,8 @@ int run(const void* q, const void* c, const int* ids, const float* scales,
 // C entry point for ctypes. Returns a cudaError_t (0 on success).
 // q [B, D] bf16, c [N, D] bf16 or int8, ids [N] i32, scales [N] f32 or
 // NULL; out_s [B, N] f32, out_bmax [B, N / bin_rows] f32; every pointer
-// 16-byte aligned. D % 64 == 0, D <= 768; bin_rows a power of two in
-// [8, 128] dividing N; N < 2^31. The same arguments as
+// 16-byte aligned. D % 64 == 0, 128 <= D <= 768; bin_rows a power of two
+// in [8, 128] dividing N; N < 2^31. The same arguments as
 // fused_binmax_launch.
 extern "C" int fused_binmax_sm90_launch(const void* q, int q_dtype,
                                         const void* c, int c_dtype,
@@ -700,8 +671,8 @@ extern "C" int fused_binmax_sm90_launch(const void* q, int q_dtype,
   using namespace cldrd_k2_90;
   const bool pow2 = bin_rows > 0 && (bin_rows & (bin_rows - 1)) == 0;
   if (q_dtype != cldrd::DT_BF16 || B <= 0 || N <= 0 || N >= (1ll << 31) ||
-      D <= 0 || D % KC != 0 || D > MAX_D || stages_for(D) < 1 || !pow2 ||
-      bin_rows < 8 || bin_rows > TILE || N % bin_rows != 0)
+      D % KC != 0 || D < MIN_D || D > MAX_D || !pow2 || bin_rows < 8 ||
+      bin_rows > TILE || N % bin_rows != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (c_dtype == cldrd::DT_I8)

@@ -7,11 +7,11 @@ multiple of 128) and stores whose length is not a multiple of 2,048 rows.
 Two CUDA kernels compute it, picked by ``kernel_route`` from dtype and
 shape alone:
 
-- ``csrc/fused_binmax_sm90.cu`` (wgmma, resident queries, row tiles fed
-  to shared memory by TMA or by producer warps that widen int8, scores
-  out by TMA store) takes bf16 queries against bf16 or int8 stores with
-  ``D`` a multiple of 64 up to 768 and bins of 8-128 rows, at any batch:
-  every launch of the main path;
+- ``csrc/fused_binmax_sm90.cu`` (wgmma on 128 queries a block, row
+  tiles fed to shared memory by TMA or by producer warps that widen
+  int8, scores out by TMA store) takes bf16 queries against bf16 or int8
+  stores with ``D`` a multiple of 64 from 128 to 768 and bins of 8-128
+  rows, at any batch: every launch of the main path;
 - ``csrc/fused_binmax.cu`` (synchronous WMMA or fp32 FMA over
   ``score_tile.cuh``) takes the rest: fp32 operands and other widths.
 
@@ -34,7 +34,7 @@ LAUNCHES = 0  # kernel launches through fused_binmax()
 # launches by C entry point (the route each took)
 ENTRY_LAUNCHES = {"fused_binmax_launch": 0, "fused_binmax_sm90_launch": 0}
 BIN_SIZES = (8, 16, 32, 64, 128)
-SM90_MAX_DIM = 768
+SM90_MIN_DIM, SM90_MAX_DIM = 128, 768
 
 NEG_INF = float("-inf")
 # plain versions score at most this many rows at once (bounds the fp32
@@ -74,12 +74,12 @@ def fused_binmax_plain(queries, corpus, row_ids, bin_rows: int,
 def kernel_route(q_dtype, c_dtype, d: int, bin_rows: int) -> str:
     """The CUDA kernel a launch takes, by dtype and shape alone: "sm90"
     (``csrc/fused_binmax_sm90.cu``) for bf16 queries against a bf16 or
-    int8 store with ``d`` a multiple of 64 up to 768 and bins of 8-128
-    rows; "generic" (``csrc/fused_binmax.cu``) for everything else. Both
-    take any batch and any ``N`` the bin size divides."""
+    int8 store with ``d`` a multiple of 64 from 128 to 768 and bins of
+    8-128 rows; "generic" (``csrc/fused_binmax.cu``) for everything else.
+    Both take any batch and any ``N`` the bin size divides."""
     if (q_dtype == torch.bfloat16
             and c_dtype in (torch.bfloat16, torch.int8)
-            and d % 64 == 0 and 0 < d <= SM90_MAX_DIM
+            and d % 64 == 0 and SM90_MIN_DIM <= d <= SM90_MAX_DIM
             and bin_rows in BIN_SIZES):
         return "sm90"
     return "generic"

@@ -167,18 +167,19 @@ def test_fused_binmax_sm90_agrees_on_normal_data_and_is_deterministic():
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,c_dtype,d,entry", [
     (torch.bfloat16, torch.int8, 768, "fused_binmax_sm90_launch"),
-    (torch.bfloat16, torch.bfloat16, 64, "fused_binmax_sm90_launch"),
+    (torch.bfloat16, torch.bfloat16, 128, "fused_binmax_sm90_launch"),
     (torch.bfloat16, torch.int8, 320, "fused_binmax_sm90_launch"),
     (torch.bfloat16, torch.bfloat16, 832, "fused_binmax_launch"),
     (torch.bfloat16, torch.int8, 96, "fused_binmax_launch"),
+    (torch.bfloat16, torch.bfloat16, 64, "fused_binmax_launch"),
     (torch.bfloat16, torch.float32, 768, "fused_binmax_launch"),
     (torch.float32, torch.float32, 768, "fused_binmax_launch"),
 ])
 def test_fused_binmax_route_boundary_by_launch_name(q_dtype, c_dtype, d,
                                                     entry):
     """Each launch goes through the C entry point kernel_route names, and
-    either route EQUALS the plain version on integer inputs (depths of one
-    and five 64-deep chunks included)."""
+    either route EQUALS the plain version on integer inputs (depths of
+    two and five 64-deep chunks included)."""
     dev = _device()
     q, c, ids, scales = _inputs(dev, 130, 4104, d, c_dtype, 12)
     q = q.to(q_dtype)
@@ -211,8 +212,8 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take():
     with pytest.raises(TypeError):              # fp16 queries
         k2.fused_binmax(q.half(), c, ids, 128)
     # the sm90 entry point itself refuses what its route never sends it:
-    # fp32 queries or store, D past 768 or not a multiple of 64, bins
-    # outside 8-128, an empty batch
+    # fp32 queries or store, D outside 128-768 or not a multiple of 64,
+    # bins outside 8-128, an empty batch
     from cldrd_tpu_torch.ops import _build
 
     out_s = torch.empty(128, 4096, device=dev)
@@ -223,6 +224,7 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take():
              ctypes.c_int]
     good = dict(qd=1, cd=1, b=128, d=768, bins=8)
     for bad in (dict(qd=0), dict(cd=0), dict(d=832), dict(d=736),
+                dict(d=64),
                 dict(bins=256), dict(bins=4), dict(b=0)):
         a = {**good, **bad}
         with pytest.raises(RuntimeError):

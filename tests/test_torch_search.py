@@ -403,7 +403,7 @@ def test_every_main_path_k1_launch_takes_sm90(hbm_dtype, n, nq, batch):
 _K2_SM90 = [(q, c, d, b, "sm90")
             for q, c in ((torch.bfloat16, torch.bfloat16),
                          (torch.bfloat16, torch.int8))
-            for d in (768, 64, 320)
+            for d in (768, 128, 320)
             for b in (8, 16, 32, 64, 128)]
 
 
@@ -415,6 +415,7 @@ _K2_SM90 = [(q, c, d, b, "sm90")
     (torch.bfloat16, torch.int8, 832, 128, "generic"),   # D > 768
     (torch.bfloat16, torch.bfloat16, 96, 8, "generic"),  # D % 64
     (torch.bfloat16, torch.int8, 32, 64, "generic"),
+    (torch.bfloat16, torch.bfloat16, 64, 128, "generic"),  # one chunk
     (torch.bfloat16, torch.int8, 768, 256, "generic"),   # no such bin
 ])
 def test_k2_kernel_route_by_dtype_and_shape(q_dtype, c_dtype, d, bin_rows,

@@ -1,6 +1,7 @@
 """Measure the parts of K2 (csrc/fused_binmax_sm90.cu) on one card.
 
     python3 tools/k2_variants.py --out OUT.json [--only NAME ...]
+                                 [--source OTHER.cu]
 
 Builds, with the port's nvcc flags, into build/k2_variants/, patched
 copies of csrc/fused_binmax_sm90.cu:
@@ -11,30 +12,35 @@ copies of csrc/fused_binmax_sm90.cu:
   release it; the epilogue writes whatever the accumulators hold);
 - ``no_widen``: int8 codes copied into the ring unwidened (two words per
   word of codes);
-- ``one_producer``: int8 fed by one producer warpgroup (two warps a ring,
-  eight 16-byte pieces a thread), as in the first design;
+- ``one_producer``: int8 fed by one producer warpgroup (four 16-byte
+  pieces a thread) in place of two;
 - ``no_prefetch``: without the int8 producer's L2 prefetch of the next
   tile;
-- ``ring2`` / ``ring3``: two or three ring stages a consumer in place of
-  four;
-- ``thread_arrivals``: every thread arrives on the ring's barriers (128
-  consumer arrivals a stage), as in the first design;
-- ``no_epi_fence`` / ``no_prod_fence``: without the proxy fence after the
-  epilogue's staging writes, or after the int8 producer's widened
-  writes (timing only: the async proxy may then read stale data);
+- ``ring4``: four ring stages in place of seven;
 - ``no_tma_store``: the epilogue stages its scores but issues no store;
-- ``no_binmax``: the epilogue writes the scores but no bin maxima.
+- ``ahead4`` / ``ahead6``: int8 codes loaded four or six chunks ahead in
+  registers in place of three;
+- ``tiles64``: stripes of 64 row tiles a block in place of 32;
+- ``no_read_wait`` / ``no_pair_bar`` / ``no_staging`` /
+  ``early_release`` (timing only, the scores may be wrong): the epilogue
+  without the wait for its stores to read the staging stages, without
+  the barrier of both consumers before it writes them, without the
+  staging writes, or with the two stages handed back before it.
 
 Then checks each library's SASS for wgmma register hazards
 (``cldrd_tpu_torch/ops/_wgmma_check.py``) and, each library in a process
 of its own, holds the variants that keep the function (all but
-``no_epilogue``, ``no_products`` and ``no_widen``) to
+``no_epilogue``, ``no_products``, ``no_widen`` and ``no_tma_store``) to
 ``fused_binmax_plain`` bit for bit on integer inputs (a zero query, a
 partial last tile), and times every variant at K2's two
 shapes: B=512 over a 1,048,576 x 768 bf16 store, and B=2048 over a
 1,769,472 x 768 int8 store with scales (the segment a wide
 ``search_batched`` gives K2), as device times (``chip_smoke.device_ms``),
 twice each. Writes one JSON object to ``--out``.
+
+``--source`` builds the variants from another copy of the kernel with the
+same entry point (an earlier design, from git history); ``kept`` then
+times that design as it is.
 """
 from __future__ import annotations
 
@@ -49,14 +55,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 OUT_DIR = ROOT / "build" / "k2_variants"
 SRC = ROOT / "cldrd_tpu_torch" / "csrc" / "fused_binmax_sm90.cu"
-EPILOGUE_START = "    // scores out by TMA from the tile's last stage"
+EPILOGUE_START = "    // scores out by TMA through the tile's last two stages"
 EPILOGUE_END = "  if (lead) bulk_wait0();  // the scores are written"
 PATCHES = {
     "kept": [],
     "no_epilogue": "cut",  # EPILOGUE_START .. the tile loop's end
     "no_products": [(
-        "        mma_n128(acc, sdesc(sQ + k * Q_TILE + st * 32),\n"
-        "                 sdesc(ring + s * STAGE + st * 32), (k | st) != 0);",
+        "        mma_n128(acc, sdesc(st + wg * BOX + kk * 32),\n"
+        "                 sdesc(st + Q_PART + kk * 32), (k | kk) != 0);",
         "        ;")],
     "no_widen": [(
         "            for (int q = 0; q < 4; ++q) widen4(w4[q], o[2 * q], "
@@ -67,37 +73,41 @@ PATCHES = {
         "            }")],
     "one_producer": [
         ("  return i8 ? 512 : 384;", "  return 384;"),
-        ("constexpr int feed_for(bool i8) { return i8 ? 128 : 64; }",
-         "constexpr int feed_for(bool i8) { return 64; }")],
+        ("constexpr int feed_for(bool i8) { return i8 ? 256 : 128; }",
+         "constexpr int feed_for(bool i8) { return 128; }")],
     "no_prefetch": [(
-        "      prefetch_l2(c8 + r0 * row_bytes, (uint32_t)((r1 - r0) * "
-        "row_bytes));", "      (void)r1;")],
-    "ring2": [("  const int s = fit < MAX_STAGES ? fit : MAX_STAGES;",
-               "  const int s = fit < 2 ? fit : 2;")],
-    "ring3": [("  const int s = fit < MAX_STAGES ? fit : MAX_STAGES;",
-               "  const int s = fit < 3 ? fit : 3;")],
-    "thread_arrivals": [
-        ("  __syncwarp();\n  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);",
-         "  mbar_arrive(bar);"),
-        ("      mbar_init(sBar + 8 * i, feed_for(I8) / 32);  // producer warps\n"
-         "      mbar_init(sBar + 64 + 8 * i, 4);             // consumer warps",
-         "      mbar_init(sBar + 8 * i, I8 ? 128 : 2);\n"
-         "      mbar_init(sBar + 64 + 8 * i, 128);")],
-    "no_epi_fence": [(
-        "      fence_async_smem();  // the boxes are the bulk stores' to read",
-        "      ;")],
-    "no_prod_fence": [(
-        "          fence_async_smem();  // the widened chunk is wgmma's to read",
-        "          ;")],
+        "              prefetch_l2(c8 + r0 * row_bytes,\n"
+        "                          (uint32_t)((r1 - r0) * row_bytes));",
+        "              (void)r1;")],
+    "ring4": [("  const int s = fit < MAX_STAGES ? fit : MAX_STAGES;",
+               "  const int s = fit < 4 ? fit : 4;")],
     "no_tma_store": [(
-        "        tma_store(&map_s, r0 + 64 * h, q0, stg);\n"
-        "        tma_store(&map_s, r0 + 64 * h + 32, q0, stg + BOX);\n",
-        "")],
-    "no_binmax": "cut_binmax",
+        "        tma_store(&map_s, r0 + 32 * b, qw, stg[b >> 1] + (b & 1) * "
+        "BOX);", "        ;")],
+    "ahead4": [("    constexpr int AHEAD = 3;",
+                "    constexpr int AHEAD = 4;")],
+    "ahead6": [("    constexpr int AHEAD = 3;",
+                "    constexpr int AHEAD = 6;")],
+    "tiles64": [("constexpr int TILES_PER_BLOCK = 32;",
+                 "constexpr int TILES_PER_BLOCK = 64;")],
+    "no_read_wait": [("    if (lead) bulk_wait_read0();\n    wg_bar(wg);\n"
+                      "    mbar_arrive_warp(empty + 8 * held);",
+                      "    mbar_arrive_warp(empty + 8 * held);")],
+    "no_pair_bar": [("    consumers_bar();\n    const int r0",
+                     "    const int r0")],
+    "no_staging": [("        st_shared_v2f(box + ql * 128 + ((chunk ^ g) << 4)"
+                    " + 8 * (t & 1),\n                      acc[4 * j + 2 * x],"
+                    " acc[4 * j + 2 * x + 1]);", "        (void)box;")],
+    "early_release": [
+        ("    consumers_bar();\n    const int r0",
+         "    mbar_arrive_warp(empty + 8 * held);\n"
+         "    mbar_arrive_warp(empty + 8 * prev);\n    const int r0"),
+        ("    if (lead) bulk_wait_read0();\n    wg_bar(wg);\n"
+         "    mbar_arrive_warp(empty + 8 * held);\n"
+         "    mbar_arrive_warp(empty + 8 * prev);\n", "")],
 }
-KEEPS_FUNCTION = ("kept", "one_producer", "no_prefetch", "ring2", "ring3",
-                  "thread_arrivals")  # and no_epi_fence / no_prod_fence by
-# luck only: they are not checked
+KEEPS_FUNCTION = ("kept", "one_producer", "no_prefetch", "ring4", "ahead4",
+                  "ahead6", "tiles64")
 D = 768
 SHAPES = {"bf16_1M": (512, 1_048_576, "bf16"),
           "int8_wide": (2048, 1_769_472, "int8")}
@@ -105,15 +115,11 @@ SHAPES = {"bf16_1M": (512, 1_048_576, "bf16"),
 
 def _patched(name: str, src: str) -> str:
     edits = PATCHES[name]
-    if edits == "cut_binmax":
-        a = src.index("    // bin maxima: a thread's maximum over each bin's")
-        b = src.index("    // the second half's stores have read the stage")
-        return src[:a] + src[b:]
     if edits == "cut":
         a, b = src.index(EPILOGUE_START), src.index(EPILOGUE_END)
-        # hand the last stage back and close the tile loop
-        return (src[:a] + "    mbar_arrive_warp(empty + 8 * prev);\n  }\n"
-                + src[b:])
+        # hand the last two stages back and close the tile loop
+        return (src[:a] + "    mbar_arrive_warp(empty + 8 * held);\n"
+                "    mbar_arrive_warp(empty + 8 * prev);\n  }\n" + src[b:])
     for old, new in edits:
         if src.count(old) != 1:
             raise AssertionError(f"{name}: patch target not found once")
@@ -121,11 +127,11 @@ def _patched(name: str, src: str) -> str:
     return src
 
 
-def build(names):
+def build(names, src_path):
     from cldrd_tpu_torch.ops import _build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    src = SRC.read_text()
+    src = Path(src_path).read_text()
     jobs = {}
     for name in names:
         cu = OUT_DIR / f"{name}.cu"
@@ -227,6 +233,7 @@ def main():
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--out", required=True)
     p.add_argument("--only", nargs="*", default=list(PATCHES))
+    p.add_argument("--source", default=str(SRC))
     p.add_argument("--worker", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.worker:
@@ -235,10 +242,11 @@ def main():
     from cldrd_tpu_torch.ops import _wgmma_check
 
     names = args.only
-    regs = build(names)
+    regs = build(names, args.source)
     hgmma = _wgmma_check.check_libraries(
         [OUT_DIR / f"{name}.so" for name in names])
-    out = {"registers": regs, "hgmma": hgmma, "runs": {}}
+    out = {"source": args.source, "registers": regs, "hgmma": hgmma,
+           "runs": {}}
     for name in names:
         proc = subprocess.run([sys.executable, __file__, "--out", args.out,
                                "--worker", name], capture_output=True,
