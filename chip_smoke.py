@@ -55,7 +55,11 @@ Phases (each raises on any failure; the script then exits non-zero):
    takes attention_infer.cu at the query encode (B=512, L=30) and the
    sm90 forward at B=240, L=256, each held to its plain version with
    the query tower's padding (EQUAL on exact inputs) and timed beside
-   attention.cu's tiled forward forced on the same inputs and SDPA.
+   attention.cu's tiled forward forced on the same inputs and SDPA. K5
+   at the MiniLM-L6 teacher's shape (B=128, L=256, H=12, D=32, bf16,
+   pairs of 39-90 real tokens) takes attention.cu's tiled forward: within
+   2e-2 of its plain version on normal data, EQUAL on exact inputs (two
+   forms), timed beside the plain version, its bound and SDPA.
    Every time in the kernels line is a device time: the summed
    durations of the kernels one call launches
    (torch.profiler; a trace whose kernel counts show lost records is
@@ -88,7 +92,22 @@ Phases (each raises on any failure; the script then exits non-zero):
    and 1,024 queries at 30; the retrieves encode queries with
    --attention-impl pallas (K5); the index call also builds an IVF
    companion (--ivf-nlist 16).
-6. serve: a clustered 1,048,576 x 768 int8 store (from --seed, with a
+6. teacher: a MiniLM-L6 cross-encoder (BertConfig.minilm_l6: 6 x 384,
+   12 heads) with random weights from --seed, written as an HF
+   BertForSequenceClassification state_dict. cli.retrieve_queries encodes
+   the 32,768 passages (K5 through the sm90 forward) and searches an
+   index of the 1,024 queries; cli.create_training_data --teacher-arch
+   bert scores the first 512 queries x their top 100 of the pipeline's
+   run (51,200 pairs, bf16, B=128, L=256, --attention-impl pallas) and
+   writes the four curriculum files: 5 tiled K5 launches a batch, every
+   score finite, the first 256 pairs within 0.2 of the spread of the
+   same model's scores with attention_plain, which the same model with
+   the mask ignored must miss (the check's power). cli.rerank_eval
+   runs --mode cross with the teacher and --mode dual with the trained
+   checkpoint over the same candidates; cli.export writes both formats,
+   and each indexes 4,096 passages EQUAL to the trained checkpoint.
+   Prints the teacher's pairs/s and the phase's seconds.
+7. serve: a clustered 1,048,576 x 768 int8 store (from --seed, with a
    generator of its own, so earlier phases do not change it) gets an
    IVF companion from cli.index --ivf-only (512 cells, slot 2,048, nprobe
    32), and cli.serve --ivf --hbm-dtype int8 serves it with the trained
@@ -104,15 +123,21 @@ Phases (each raises on any failure; the script then exits non-zero):
    one pass's time by stage; runs
    /add, /remove, /save and /reload once each. A flat-mode daemon (K1)
    and an IVFPQ (96 x 4-bit) daemon with --refine-factor 4 each answer a
-   few requests, EQUAL to their direct search.
+   few requests, EQUAL to their direct search. A flat daemon over the
+   pipeline's index with the teacher resident (--reranker bert) answers
+   /search at rerank_k=100, k=10 and /rerank requests, each EQUAL in ids
+   and scores to the teacher scored directly on the same pairs at the
+   daemon's batch shape.
 
-Phases 3-6 drive the port's four paths (search, train, pipeline,
-serve). Kernel launch counts are set to 0 just before each and read just
-after it: a kernel its path must reach with no launch there fails the
-run, every K1, K2 and K5 launch of a window must have gone through the
-Hopper entry points (extract_topk_sm90_launch, fused_binmax_sm90_launch,
-attn_infer_short_launch),
-and the kernels line sums the four windows. The serve phase checks
+Phases 3-7 drive the port's five paths (search, train, pipeline,
+teacher, serve). Kernel launch counts are set to 0 just before each and
+read just after it: a kernel its path must reach with no launch there
+fails the run, every K1 and K2 launch of a window must have gone through
+the Hopper entry points (extract_topk_sm90_launch,
+fused_binmax_sm90_launch), and every K5 launch through those its path
+names (K5_ENTRIES: attn_infer_short_launch, and on the teacher and serve
+paths the sm90 and tiled forwards too); the kernels line sums the five
+windows. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
 start-up and the requests they answer), counted the same way.
@@ -180,6 +205,18 @@ SERVE_NLIST, SERVE_NPROBE = 512, 32
 SERVE_CLIENTS, SERVE_REQUESTS = 8, 64     # the checked burst
 SERVE_TIMED_REQUESTS = 2048               # the timed window
 SERVE_PQ_M = 96                           # 96 x 4-bit codes: 48 bytes a row
+# the teacher phase: the MiniLM-L6 cross-encoder (BertConfig.minilm_l6)
+TEACHER_QUERIES = 512  # x their top-100 of the pipeline's run: 51,200 pairs
+TEACHER_BATCH, TEACHER_L = 128, 256
+TEACHER_HEADS, TEACHER_HEAD_DIM, TEACHER_LAYERS = 12, 32, 6
+TEACHER_SAMPLE = 256   # pairs held to the plain attention
+# of the plain scores' spread; over seeds 0-7 the kernel read 0.060-0.093,
+# the einsum attention (another sound bf16 rounding) 0.064-0.107 and the
+# plain attention with the mask ignored 0.46-1.76
+# (tools/teacher_check_seeds.py)
+TEACHER_SAMPLE_TOL = 0.2
+N_EXPORT = 4096        # passages the export round trip indexes
+RERANK_K, RERANK_TOP = 100, 10  # the rerank daemon's requests
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -600,6 +637,8 @@ def phase_kernels(ctx):
     torch.cuda.empty_cache()
     _time_attention(ctx)
     torch.cuda.empty_cache()
+    _teacher_attention(ctx)
+    torch.cuda.empty_cache()
 
     # K1 and K2 held to their plain versions and timed at B=512, N=1M bf16
     # (K1 at the bf16 store's shape; K2 at the shape of its earlier rows)
@@ -802,14 +841,23 @@ def _attn_inputs(ctx, b, length, dtype, segments):
     return q, k, v, g, mask, seg
 
 
-def _attn_bytes_ops(b, length, dtype, n_tensors, n_dots, n_int=1):
+def _attn_bytes_ops(b, length, dtype, n_tensors, n_dots, n_int=1,
+                    heads=HEADS, head_dim=HEAD_DIM, keys=None):
     """Bytes (each [B, L, H, D] operand and each int32 [B, L] mask or
     segment row read or written once) and operations (n_dots products of
-    2*B*H*L*L*D) of one attention launch."""
+    2*B*H*L*L*D) of one attention launch. Given ``keys``, the number of
+    unmasked keys over the batch (K5 at p=0: a masked key's weight is
+    exactly 0, so its K and V rows are never needed), K and V count those
+    rows only and each product 2*H*L*keys*D."""
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (n_tensors * b * HEADS * length * HEAD_DIM * item
+    row = heads * head_dim * item
+    if keys is None:
+        keys, n_kv = b * length, 0
+    else:
+        n_kv = 2  # K and V
+    nbytes = ((n_tensors - n_kv) * b * length * row + n_kv * keys * row
               + 4 * n_int * b * length)
-    return nbytes, n_dots * 2 * b * HEADS * length * length * HEAD_DIM
+    return nbytes, n_dots * 2 * heads * length * keys * head_dim
 
 
 def _attn_check(ctx, tag, b, length, dtype, segments, p=ATTN_P):
@@ -1143,18 +1191,20 @@ def _time_attention(ctx):
     # K5 at the query encode (B=512, L=30: the short-row kernel) and at
     # the passage shape (B=240, L=256: the sm90 forward at p=0), each
     # beside the tiled forward of attention.cu forced on the same inputs
-    for tag, b, length in (("encode", SEARCH_BATCH, TRAIN_LQ),
-                           ("L256", TRAIN_BZ * NWAY, TRAIN_LP)):
+    for name, tag, b, length in (
+            ("attention_infer", "encode", SEARCH_BATCH, TRAIN_LQ),
+            ("attention_infer_sm90", "L256", TRAIN_BZ * NWAY, TRAIN_LP)):
         q, k, v, _, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
         amask = (mask != 0)[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2)
+        nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2,
+                                    keys=int(mask.sum()))
         k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=amask)
         with _train_attention_route("tiled"):  # K5's route too
             t_tiled = device_ms(k5)
-        rows.setdefault("attention_infer", {})[tag] = dict(
+        rows.setdefault(name, {})[tag] = dict(
             ms=device_ms(k5), tiled_ms=t_tiled,
             route=att._kernel_route(bf16, length, HEAD_DIM, "infer"),
             plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
@@ -1167,7 +1217,7 @@ def _time_attention(ctx):
                       ("attention_train_fwd", "packed"),
                       ("attention_train_bwd", "packed"),
                       ("attention_infer", "encode"),
-                      ("attention_infer", "L256")):
+                      ("attention_infer_sm90", "L256")):
         r = rows[name][tag]
         tiled = (f" (the tiled kernels of attention.cu: {r['tiled_ms']:.3f}"
                  " ms)" if "tiled_ms" in r else "")
@@ -1175,6 +1225,78 @@ def _time_attention(ctx):
             f"kernel {r['ms']:.3f}{tiled}, plain {r['plain_ms']:.3f}, "
             f"scaled_dot_product_attention {r['library_ms']:.3f}, bound "
             f"{r['bound'][0]:.3f} ({r['bound'][1]})")
+
+
+def _pair_mask(ctx, b, length):
+    """Keys padded as the teacher's pairs are: [CLS] q [SEP] p [SEP] of
+    the pipeline's 6-word queries and 30-81-word passages, 39-90 real
+    tokens of 256."""
+    n = torch.randint(39, 91, (b, 1), generator=ctx["gen"],
+                      device=ctx["dev"])
+    return (torch.arange(length, device=ctx["dev"])[None] < n).int()
+
+
+def _teacher_attention(ctx):
+    """K5 at the MiniLM teacher's shape (bf16, B=128, L=256, H=12, D=32,
+    pair padding), which _kernel_route sends to attention.cu's tiled
+    forward: within 2e-2 of the largest magnitude of attention_plain on
+    normal data, EQUAL to it on exact inputs (every score of a row equal:
+    q = 0 and k one-hot, or q one-hot and every key e_0; v one-hot over
+    keys); timed beside its plain version, its bound and SDPA."""
+    import torch.nn.functional as F
+
+    from cldrd_tpu_torch.ops import attention as att
+
+    dev, bf16 = ctx["dev"], torch.bfloat16
+    b, length = TEACHER_BATCH, TEACHER_L
+    h, d = TEACHER_HEADS, TEACHER_HEAD_DIM
+    route = att._kernel_route(bf16, length, d, "infer")
+    if route != "tiled":
+        raise AssertionError(f"K5 at the teacher's shape takes {route}")
+    shape = (b, length, h, d)
+    mask = _pair_mask(ctx, b, length)
+    q, k, v = (torch.randn(shape, generator=ctx["gen"], device=dev).to(bf16)
+               for _ in range(3))
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= 2e-2 * ref.float().abs().max().item():
+        raise AssertionError(f"K5 tiled teacher shape: max abs err {err:.3g}")
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % d == torch.arange(d, device=dev)[None, :])
+    hot = hot[None, :, None, :].expand(shape).to(bf16).contiguous()
+    zero = torch.zeros(shape, dtype=bf16, device=dev)
+    e0 = zero.clone()
+    e0[..., 0] = 1
+    for form, qx, kx in (("q0", zero, hot), ("k0", hot, e0)):
+        got = att.flash_attention(qx, kx, hot, mask)
+        want = att.attention_plain(qx, kx, hot, mask)
+        if not (want.abs().max() > 0 and torch.equal(got, want)):
+            raise AssertionError(f"K5 tiled teacher shape exact ({form}): "
+                                 f"{int((got != want).sum())} elements "
+                                 "differ from the plain version")
+    del hot, zero, e0
+    amask = (mask != 0)[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes, ops = _attn_bytes_ops(b, length, bf16, 4, 2, heads=h,
+                                  head_dim=d, keys=int(mask.sum()))
+    row = dict(
+        ms=device_ms(lambda: att.flash_attention(q, k, v, mask)),
+        plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
+                           reps=3, warmup=1),
+        bound=bound_ms(nbytes, ops, "bf16"),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask)), B=b, L=length, H=h, D=d)
+    ctx.setdefault("timings", {})["attention_infer_tiled"] = {"teacher": row}
+    ctx["k5_teacher_err"] = err
+    log(f"[kernels] K5 tiled (attention.cu) at the teacher's shape B={b} "
+        f"L={length} H={h} D={d} bf16, pair padding: agrees with the plain "
+        f"version (max abs err {err:.3g}; tolerance 2e-2 of the largest "
+        "magnitude), EQUAL on exact inputs (two forms); device ms: kernel "
+        f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}, "
+        f"scaled_dot_product_attention {row['library_ms']:.4f}, bound "
+        f"{row['bound'][0]:.4f} ({row['bound'][1]})")
+    del q, k, v, mask, amask, qt, kt, vt
 
 
 def _oracle(index, q_np, k):
@@ -1789,6 +1911,283 @@ def phase_pipeline(ctx):
     ctx["pipeline"] = results
 
 
+# ---------------------------------------------------------------- teacher
+
+
+def _last_json(lines):
+    """The last JSON object a CLI printed (its log lines go to stdout
+    too)."""
+    start = max(i for i, line in enumerate(lines) if line.startswith("{"))
+    return json.loads("\n".join(lines[start:]))
+
+
+def _write_teacher(ctx, path):
+    """A MiniLM-L6 cross-encoder (BertConfig.minilm_l6) with random
+    weights from --seed, written as an HF BertForSequenceClassification
+    state_dict (the reference teacher's checkpoint layout)."""
+    from cldrd_tpu_torch.models import BertConfig, CrossEncoder
+    from cldrd_tpu_torch.models.convert import cross_encoder_to_hf
+
+    gen = torch.Generator().manual_seed(ctx["seed"] + 7)
+    model = CrossEncoder(BertConfig.minilm_l6(), arch="bert")
+    model.reset_parameters(gen)
+    torch.save(cross_encoder_to_hf(model.state_dict(), "bert"), path)
+
+
+def _teacher_model(path, impl):
+    from cldrd_tpu_torch.cli.common import (
+        cross_encoder_config,
+        load_cross_encoder,
+    )
+
+    return load_cross_encoder(path, cross_encoder_config(
+        "bert", "full", None, impl), "bert", torch.bfloat16, "cuda")
+
+
+@contextlib.contextmanager
+def _plain_attention(ignore_mask=False):
+    """The encoder's K5 calls take attention_plain (no kernel); with
+    ``ignore_mask`` they attend to every key, padding too: a deliberately
+    wrong attention, whose scores show what the sample check can see."""
+    from cldrd_tpu_torch.models import distilbert
+    from cldrd_tpu_torch.ops import attention as att
+
+    kernel = distilbert.flash_attention
+
+    def plain(q, k, v, mask):
+        return att.attention_plain(
+            q, k, v, torch.ones_like(mask) if ignore_mask else mask)
+
+    distilbert.flash_attention = plain
+    try:
+        yield
+    finally:
+        distilbert.flash_attention = kernel
+
+
+def _score_sample(model, sample, dev):
+    """The model's scores of the sampled batches' tokens, concatenated."""
+    with torch.inference_mode():
+        return np.concatenate([model({
+            k: torch.from_numpy(v).to(dev, torch.int64)
+            for k, v in tokens.items()}).float().cpu().numpy()[:len(got)]
+            for tokens, got in sample])
+
+
+def _teacher_sample_errors(model, sample, dev):
+    """The largest |score - plain score| over the sampled batches, over
+    the spread (max - min) of the plain scores: for the recorded scores,
+    and for the plain attention with the mask ignored (no kernel
+    launches); and the plain scores. The spread, not the largest
+    magnitude: a random-init teacher's scores sit at an offset of either
+    sign that its seed sets, while bf16 rounding moves a score by about
+    the same amount whatever the offset (tools/teacher_check_seeds.py)."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    before = att.LAUNCHES["infer"]
+    with _plain_attention():
+        want = _score_sample(model, sample, dev)
+    with _plain_attention(ignore_mask=True):
+        bad = _score_sample(model, sample, dev)
+    if att.LAUNCHES["infer"] != before:
+        raise AssertionError("the plain check launched a kernel")
+    got = np.concatenate([g for _, g in sample])
+    spread = float(want.max() - want.min())
+    return (float(np.abs(got - want).max()) / spread,
+            float(np.abs(bad - want).max()) / spread, want)
+
+
+def phase_teacher(ctx):
+    """The teacher and rerank path at full width: cli.retrieve_queries,
+    cli.create_training_data with the MiniLM-L6 teacher, cli.rerank_eval
+    (cross and dual), cli.export in both formats into cli.index."""
+    from cldrd_tpu_torch.cli import create_training_data as cli_ctd
+    from cldrd_tpu_torch.cli import export as cli_export
+    from cldrd_tpu_torch.cli import index as cli_index
+    from cldrd_tpu_torch.cli import rerank_eval as cli_rerank_eval
+    from cldrd_tpu_torch.cli import retrieve_queries as cli_rq
+    from cldrd_tpu_torch.index.persistence import read_embeddings
+    from cldrd_tpu_torch.ops import attention as att
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "teacher")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths, ckpt = ctx["corpus"], ctx["trained_ckpt"]
+    common = ["--tokenizer", "hash", "--device", "cuda"]
+    teacher = ctx["teacher_ckpt"] = os.path.join(work, "teacher.pth.tar")
+    _write_teacher(ctx, teacher)
+    res = {}
+
+    # inverse retrieval: passages -> their top queries over a query index
+    qidx = os.path.join(work, "qindex")
+    _call_cli(cli_index.main, [
+        "--collection", paths["queries"], "--out", qidx, "--max-length",
+        str(TRAIN_LQ), "--checkpoint", ckpt, *common])
+    p2q = os.path.join(work, "p2q.tsv")
+    lines, t_rq = _call_cli(cli_rq.main, [
+        "--query-index", qidx, "--passages", paths["collection"], "--run",
+        p2q, "--topk", "20", "--max-length", str(TRAIN_LP),
+        "--search-batch-size", str(SEARCH_BATCH), "--attention-impl",
+        "pallas", "--checkpoint", ckpt, *common])
+    _check_run_file(p2q, N_PIPELINE, 20, N_QUERIES)
+    res["retrieve_queries"] = dict(_last_json(lines), seconds=t_rq)
+    log(f"[teacher] retrieve_queries: {N_PIPELINE} passages -> top 20 of "
+        f"{N_QUERIES} queries in {t_rq:.1f} s")
+
+    # candidates: the first TEACHER_QUERIES queries' top 100 of the
+    # pipeline's k=100 run
+    cands = os.path.join(work, "cands.tsv")
+    src = os.path.join(WORK, "pipeline", f"run_bfloat16_{K_PIPELINE_EXTRACT}"
+                       ".tsv")
+    n_pairs = 0
+    with open(src) as f, open(cands, "w") as out:
+        for line in f:
+            if int(line.split("\t", 1)[0]) < TEACHER_QUERIES:
+                out.write(line)
+                n_pairs += 1
+    if n_pairs != TEACHER_QUERIES * K_PIPELINE_EXTRACT:
+        raise AssertionError(f"{n_pairs} candidate pairs")
+
+    # the teacher scores them: record every batch's scores, keep the
+    # first batches' inputs for the check against the plain attention
+    seen = {"scores": [], "sample": [], "batches": 0, "s": 0.0}
+    make_fn = cli_ctd.make_cross_encoder_score_fn
+
+    def recording(model):
+        fn = make_fn(model)
+
+        def score(batch):
+            t0 = time.perf_counter()
+            out = fn(batch)
+            seen["s"] += time.perf_counter() - t0
+            seen["batches"] += 1
+            seen["scores"].append(out[:batch.n_valid])
+            if len(seen["sample"]) * TEACHER_BATCH < TEACHER_SAMPLE:
+                seen["sample"].append((batch.query_passage,
+                                       out[:batch.n_valid]))
+            return out
+        return score
+
+    tiled_key = ("infer", "attn_fwd_launch")
+    tiled0 = att.ROUTE_LAUNCHES[tiled_key]
+    cli_ctd.make_cross_encoder_score_fn = recording
+    try:
+        lines, t_ctd = _call_cli(cli_ctd.main, [
+            "--candidates-run", cands, "--queries", paths["queries"],
+            "--passages", paths["collection"], "--teacher-checkpoint",
+            teacher, "--teacher-arch", "bert", "--model-size", "full",
+            "--attention-impl", "pallas", "--compute-dtype", "bfloat16",
+            "--max-length", str(TEACHER_L), "--batch-size",
+            str(TEACHER_BATCH), "--out-prefix", os.path.join(work, "cl_"),
+            *common])
+    finally:
+        cli_ctd.make_cross_encoder_score_fn = make_fn
+    tiled = att.ROUTE_LAUNCHES[tiled_key] - tiled0
+    files = _last_json(lines)
+    want_batches = -(-n_pairs // TEACHER_BATCH)
+    if seen["batches"] != want_batches:
+        raise AssertionError(f"{seen['batches']} teacher batches")
+    if tiled != (TEACHER_LAYERS - 1) * want_batches:
+        raise AssertionError(f"{tiled} tiled K5 launches for "
+                             f"{want_batches} teacher batches")
+    scores = np.concatenate(seen["scores"])
+    if scores.shape != (n_pairs,) or not np.isfinite(scores).all():
+        raise AssertionError("teacher scores not finite or malformed")
+    stages = {}
+    for stage, path in files.items():
+        rows = [json.loads(x) for x in open(path)]
+        stages[stage] = len(rows)
+        if len(rows) != TEACHER_QUERIES or not all(
+                np.isfinite(r["relT_scores"]).all() for r in rows):
+            raise AssertionError(f"{path}: {len(rows)} rows")
+    if len(stages) != 4:
+        raise AssertionError(f"curriculum files {sorted(stages)}")
+    # the sample, scored directly with the plain attention; the same with
+    # the mask ignored must miss the tolerance, or the check sees nothing
+    worst, wrong, _ = _teacher_sample_errors(
+        _teacher_model(teacher, "pallas"), seen["sample"], ctx["dev"])
+    if not worst <= TEACHER_SAMPLE_TOL:
+        raise AssertionError(f"teacher sample: max abs err {worst:.3g} of "
+                             "the plain scores' spread")
+    if not wrong > TEACHER_SAMPLE_TOL:
+        raise AssertionError(f"teacher sample: the mask ignored reads only "
+                             f"{wrong:.3g} of the plain scores' spread")
+    res["create_training_data"] = dict(
+        pairs=n_pairs, seconds=t_ctd, pairs_per_s=n_pairs / t_ctd,
+        score_s=seen["s"], score_pairs_per_s=n_pairs / seen["s"],
+        batches=want_batches, tiled_launches=tiled, stages=stages,
+        sample_rel_err=worst, sample_mask_ignored_rel_err=wrong,
+        score_range=[float(scores.min()),
+                                           float(scores.max())])
+    log(f"[teacher] create_training_data: {n_pairs} pairs (MiniLM-L6, bf16,"
+        f" B={TEACHER_BATCH}, L={TEACHER_L}) in {t_ctd:.1f} s = "
+        f"{n_pairs / t_ctd:.1f} pairs/s end to end ({n_pairs / seen['s']:.1f}"
+        f" pairs/s in the score calls, {seen['s']:.1f} s); {tiled} tiled K5 "
+        f"launches = {TEACHER_LAYERS - 1} x {want_batches} batches; every "
+        "score finite; "
+        f"{TEACHER_SAMPLE} sampled pairs within {worst:.3g} of the spread "
+        f"of the plain attention's scores (tolerance {TEACHER_SAMPLE_TOL}; "
+        f"the plain attention with the mask ignored: {wrong:.3g}); stages "
+        f"{stages}")
+
+    # rerank evaluation: the teacher (cross) and the trained tower (dual)
+    metrics = {}
+    for mode, extra in (("cross", ["--checkpoint", teacher, "--teacher-arch",
+                                   "bert", "--model-size", "full",
+                                   "--max-length", str(TEACHER_L)]),
+                        ("dual", ["--checkpoint", ckpt, "--max-query-len",
+                                  str(TRAIN_LQ), "--max-passage-len",
+                                  str(TRAIN_LP)])):
+        lines, t_re = _call_cli(cli_rerank_eval.main, [
+            "--candidates-run", cands, "--queries", paths["queries"],
+            "--passages", paths["collection"], "--qrels", paths["qrels"],
+            "--mode", mode, "--batch-size", str(TEACHER_BATCH),
+            "--attention-impl", "pallas", *extra, *common])
+        metrics[mode] = dict(_last_json(lines), seconds=t_re)
+        if metrics[mode]["QueriesRanked"] != TEACHER_QUERIES:
+            raise AssertionError(f"rerank_eval {mode}: {metrics[mode]}")
+        log(f"[teacher] rerank_eval --mode {mode} ({t_re:.1f} s): "
+            + json.dumps({k: v for k, v in metrics[mode].items()
+                          if k != "seconds"}))
+    res["rerank_eval"] = metrics
+
+    # export in both formats; each round-trips into cli.index
+    sub = os.path.join(work, "subset.tsv")
+    with open(paths["collection"]) as f, open(sub, "w") as out:
+        for _, line in zip(range(N_EXPORT), f):
+            out.write(line)
+    ref_ckpt = os.path.join(work, "export.pth.tar")
+    hf_dir = os.path.join(work, "hf")
+    _call_cli(cli_export.main, ["--checkpoint", ckpt, "--out", ref_ckpt,
+                                *common])
+    _call_cli(cli_export.main, ["--checkpoint", ckpt, "--out", hf_dir,
+                                "--format", "hf", *common])
+    hf_ckpt = os.path.join(work, "from_hf.pth.tar")
+    torch.save({"state_dict": {
+        f"{t}.{k}": v for t in ("query_encoder", "passage_encoder")
+        for k, v in torch.load(os.path.join(hf_dir, t, "pytorch_model.bin"),
+                               weights_only=True).items()}}, hf_ckpt)
+    embs = {}
+    for name, c in (("trained", ckpt), ("reference", ref_ckpt),
+                    ("hf", hf_ckpt)):
+        out_dir = os.path.join(work, f"idx_{name}")
+        _call_cli(cli_index.main, ["--collection", sub, "--out", out_dir,
+                                   "--max-length", str(TRAIN_LP),
+                                   "--checkpoint", c, *common])
+        embs[name] = read_embeddings(out_dir)
+    for name in ("reference", "hf"):
+        if not (np.array_equal(embs[name][0], embs["trained"][0])
+                and np.array_equal(embs[name][1], embs["trained"][1])):
+            raise AssertionError(f"the {name} export indexes differently")
+    log(f"[teacher] export: reference and hf formats index {N_EXPORT} "
+        "passages EQUAL to the trained checkpoint")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[teacher] teacher pairs/s {n_pairs / t_ctd:.1f} (end to end); "
+        f"phase {res['seconds']:.1f} s")
+    ctx["teacher"] = res
+
+
 # ------------------------------------------------------------------ serve
 
 # the daemons answer on localhost only; no proxy from the environment
@@ -2227,6 +2626,10 @@ def phase_serve(ctx):
         "to FlatIPIndex.search of its query embeddings; extract_topk "
         f"launches of its own work {flat_k1} (requests {span['extract_topk']})")
 
+    # --- two stages: a flat daemon over the pipeline's index with the
+    # MiniLM teacher resident (K1, then K5 on attention.cu's tiled route)
+    res["rerank"] = _serve_rerank(ctx, own)
+
     # --- IVFPQ (SERVE_PQ_M x 4-bit) + exact refine over the flat disk store
     with _counted(own):
         lines, t_pq = _call_cli(cli_index.main, [
@@ -2253,6 +2656,90 @@ def phase_serve(ctx):
     ctx["serve"] = res
     shutil.rmtree(WORK, ignore_errors=True)
     return own
+
+
+def _serve_rerank(ctx, own):
+    """cli.serve --reranker bert over the pipeline's 32,768-passage index
+    with the teacher phase's checkpoint: /search with rerank_k=100, k=10
+    and /rerank over explicit texts; every answer EQUALS the teacher
+    scored directly (CrossEncoder, the same kernels) on the same pairs at
+    the daemon's batch shape, in ids and scores."""
+    from cldrd_tpu_torch.data import HashTokenizer, TsvDocStore
+    from cldrd_tpu_torch.data.reranking_dataset import RerankingDataset
+    from cldrd_tpu_torch.evaluation import make_cross_encoder_score_fn
+
+    paths = ctx["corpus"]
+    with _counted(own) as start:
+        dmn = _Daemon([
+            "--index", os.path.join(WORK, "pipeline", "index"),
+            "--checkpoint", ctx["trained_ckpt"], "--max-length",
+            str(TRAIN_LQ), "--attention-impl", "pallas", "--reranker",
+            "bert", "--reranker-checkpoint", ctx["teacher_ckpt"],
+            "--passages", paths["collection"], "--rerank-max-length",
+            str(TEACHER_L), "--rerank-batch-size", str(TEACHER_BATCH)])
+    try:
+        with open(paths["queries"]) as f:
+            texts = [line.rstrip("\n").split("\t", 1)[1] for line in f]
+        sent = texts[-4:]
+        with _counted(own) as span:
+            searched = [_http(dmn.url, "/search", {
+                "queries": [t], "k": RERANK_TOP, "rerank_k": RERANK_K})
+                for t in sent]
+            explicit = [_http(dmn.url, "/rerank", {
+                "query": t, "passages": texts[:20]}) for t in sent[:2]]
+        passes = list(dmn.passes)
+    finally:
+        dmn.close()
+    teacher = _teacher_model(ctx["teacher_ckpt"], "pallas")
+    direct = make_cross_encoder_score_fn(teacher)
+    tok = HashTokenizer(teacher.config.vocab_size)
+
+    def score(query, passages):
+        ds = RerankingDataset.from_pairs(
+            [(0, i) for i in range(len(passages))], {0: query},
+            dict(enumerate(passages)), tok, is_cross_encoder=True,
+            max_len=TEACHER_L, with_token_type_ids=True)
+        out = np.zeros(len(passages), np.float32)
+        for batch in ds.batches(TEACHER_BATCH):
+            s = direct(batch)
+            out[batch.pids[:batch.n_valid]] = s[:batch.n_valid]
+        return out
+
+    docs = TsvDocStore(paths["collection"])
+    for q, answer, ps in zip(sent, searched, passes):
+        ids = [int(i) for i in ps["calls"][0][2][0][:RERANK_K]]
+        s = score(q, docs.get_many(ids))
+        order = np.argsort(-s, kind="stable")[:RERANK_TOP]
+        want = [(ids[i], float(s[i])) for i in order]
+        got = [(h["id"], h["score"]) for h in answer["results"][0]]
+        if got != want:
+            raise AssertionError("a rerank_k answer differs from the "
+                                 "teacher scored directly")
+    for q, answer in zip(sent, explicit):
+        s = score(q, texts[:20])
+        want = [(int(i), float(s[i]))
+                for i in np.argsort(-s, kind="stable")]
+        if [(h["index"], h["score"]) for h in answer["results"]] != want:
+            raise AssertionError("a /rerank answer differs from the "
+                                 "teacher scored directly")
+    tiled = start["k5:attn_fwd_launch"] + span["k5:attn_fwd_launch"]
+    # teacher batches: a warm-up, the rerank_k and the /rerank requests
+    batches = 1 + (len(sent) * -(-RERANK_K // TEACHER_BATCH)
+                   + len(explicit) * -(-20 // TEACHER_BATCH))
+    want_tiled = (TEACHER_LAYERS - 1) * batches
+    if tiled != want_tiled:
+        raise AssertionError(f"the rerank daemon made {tiled} tiled K5 "
+                             f"launches, not {want_tiled}")
+    log(f"[serve] rerank daemon (MiniLM-L6 resident, pair batch "
+        f"{TEACHER_BATCH} x {TEACHER_L}): {len(sent)} /search requests at "
+        f"rerank_k={RERANK_K}, k={RERANK_TOP} and {len(explicit)} /rerank "
+        "requests, every answer EQUAL to the teacher scored directly on "
+        f"the same pairs (ids and scores); tiled K5 launches {tiled} "
+        f"(start-up {start['k5:attn_fwd_launch']}), extract_topk "
+        f"{span['extract_topk']}")
+    return {"start_s": dmn.start_s, "requests": len(sent) + len(explicit),
+            "tiled_launches": tiled,
+            "extract_topk_launches": span["extract_topk"]}
 
 
 # ------------------------------------------- train-attention route study
@@ -2752,8 +3239,19 @@ KERNELS = [
     ("attention_train_bwd", ("attention", "train_bwd"),
      "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:257", "train",
      "attn_err_bf16"),
-    ("attention_infer", ("attention", "infer"), "csrc/attention_infer.cu",
-     "cldrd_tpu/ops/attention.py:61", "encode", "k5_err"),
+    # K5 by route (ops/attention.py::_kernel_route): the query encode's
+    # L=30 on attention_infer.cu; passages at L=256 (the teacher path's
+    # passage tower) on the sm90 forward; the MiniLM-L6 teacher's head_dim
+    # 32 on attention.cu's tiled forward, which no path trains on
+    ("attention_infer", ("attention", ("infer", "attn_infer_short_launch")),
+     "csrc/attention_infer.cu", "cldrd_tpu/ops/attention.py:61", "encode",
+     "k5_err"),
+    ("attention_infer_sm90", ("attention", ("infer", "attn_fwd_sm90_launch")),
+     "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:61", "L256",
+     "k5_err"),
+    ("attention_infer_tiled", ("attention", ("infer", "attn_fwd_launch")),
+     "csrc/attention.cu", "cldrd_tpu/ops/attention.py:61", "teacher",
+     "k5_teacher_err"),
     ("ivf_probe", ("ivf_probe", None), "csrc/ivf_probe.cu",
      "cldrd_tpu/ops/ivf_probe.py:60", "int8_full_b8", "k6_err"),
 ]
@@ -2772,11 +3270,18 @@ def _counters():
 
 
 # the C entry points whose launches the paths must show: every K1 and K2
-# launch of the main path through its sm90 kernel, every K5 launch
-# through the short-row one (the query encode's L=30)
+# launch of the main path through its sm90 kernel
 ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
-           "fused_binmax": ("fused_binmax", "fused_binmax_sm90_launch"),
-           "attention_infer": ("attention", "attn_infer_short_launch")}
+           "fused_binmax": ("fused_binmax", "fused_binmax_sm90_launch")}
+# K5's entry points on each path: the query encode's L=30 takes the
+# short-row kernel; the teacher path adds its passage tower (L=256,
+# head_dim 64: the sm90 forward) and the MiniLM teacher (head_dim 32: the
+# tiled forward); so does the serve path's rerank daemon (its warm-up
+# encodes a passage at L=256)
+K5_ALL = ("attn_infer_short_launch", "attn_fwd_sm90_launch",
+          "attn_fwd_launch")
+K5_ENTRIES = {"pipeline": ("attn_infer_short_launch",),
+              "teacher": K5_ALL, "serve": K5_ALL}
 
 
 def reset_launches():
@@ -2786,30 +3291,48 @@ def reset_launches():
                 mod.LAUNCHES[key] = 0
         else:
             mod.LAUNCHES = 0
-        for key in getattr(mod, "ENTRY_LAUNCHES", {}):
-            mod.ENTRY_LAUNCHES[key] = 0
+        for counts in ("ENTRY_LAUNCHES", "ROUTE_LAUNCHES"):
+            for key in getattr(mod, counts, {}):
+                getattr(mod, counts)[key] = 0
 
 
 def read_launches():
-    """Launches by kernel record (KERNELS) and, as "entry:<name>", by
-    the C entry point of ENTRIES."""
+    """Launches by kernel record (KERNELS; a (name, entry) key reads
+    attention's ROUTE_LAUNCHES), as "entry:<name>" by the C entry point
+    of ENTRIES, and as "k5:<name>" K5's launches by entry point."""
     mods = _counters()
-    out = {name: (mods[m].LAUNCHES if key is None
-                  else mods[m].LAUNCHES[key])
-           for name, (m, key), *_ in KERNELS}
+    out = {}
+    att = mods["attention"]
+    for name, (m, key), *_ in KERNELS:
+        if key is None:
+            out[name] = mods[m].LAUNCHES
+        elif isinstance(key, tuple):
+            out[name] = mods[m].ROUTE_LAUNCHES[key]
+        else:
+            out[name] = mods[m].LAUNCHES[key]
     for m, entry in ENTRIES.values():
         out[f"entry:{entry}"] = mods[m].ENTRY_LAUNCHES[entry]
+    for entry in K5_ALL:
+        out[f"k5:{entry}"] = att.ROUTE_LAUNCHES[("infer", entry)]
+    out["k5"] = att.LAUNCHES["infer"]  # K5, every route
     return out
 
 
 def check_entries(path, window):
-    """Every K1, K2 and K5 launch of a path's window went through the
-    Hopper entry point (K5's launches of the main path are all L=30)."""
+    """Every K1 and K2 launch of a path's window went through the Hopper
+    entry point, and every K5 launch through the entry points its path
+    names (K5_ENTRIES; the short-row kernel elsewhere)."""
     for name, (_, entry) in ENTRIES.items():
         if window[name] != window[f"entry:{entry}"]:
             raise AssertionError(
                 f"the {path} path's {window[name]} {name} launches took "
                 f"{entry} {window[f'entry:{entry}']} times")
+    k5 = K5_ENTRIES.get(path, ("attn_infer_short_launch",))
+    through = sum(window[f"k5:{e}"] for e in k5)
+    if window["k5"] != through:
+        raise AssertionError(
+            f"the {path} path's {window['k5']} K5 launches took "
+            f"{'/'.join(k5)} {through} times")
 
 
 def main(argv=None) -> int:
@@ -2859,7 +3382,11 @@ def main(argv=None) -> int:
             ("train", phase_train,
              ("attention_train_fwd", "attention_train_bwd")),
             ("pipeline", phase_pipeline, ("extract_topk", "attention_infer")),
-            ("serve", phase_serve, ("ivf_probe", "extract_topk"))):
+            ("teacher", phase_teacher,
+             ("attention_infer", "attention_infer_sm90",
+              "attention_infer_tiled")),
+            ("serve", phase_serve,
+             ("ivf_probe", "extract_topk", "attention_infer_tiled"))):
         reset_launches()
         own = run(name, fn)
         # the serve phase checks its answers through the same kernels, so
@@ -2874,7 +3401,7 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
     missing = [k for k, v in launches.items() if v <= 0
-               and not k.startswith("entry:")]
+               and not k.startswith(("entry:", "k5:")) and k != "k5"]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     log(f"[main path] kernel launches: {launches}")
@@ -2882,7 +3409,8 @@ def main(argv=None) -> int:
     # every measurement of the run, unrounded, on one line
     log("results " + json.dumps({
         k: ctx.get(k) for k in ("timings", "search_layer_ms", "search",
-                                "train", "pipeline", "serve", "k1_err",
+                                "train", "pipeline", "teacher", "serve",
+                                "k1_err", "k5_teacher_err",
                                 "attn_tight", "attn_exact_elements",
                                 "attn_model_calls",
                                 "k2_err", "k2_checked", "k6_err",

@@ -13,8 +13,14 @@ from typing import Optional
 import torch
 
 from cldrd_tpu_torch.device import resolve_device
-from cldrd_tpu_torch.models import DistilBertConfig, NwayDualEncoder
+from cldrd_tpu_torch.models import (
+    BertConfig,
+    CrossEncoder,
+    DistilBertConfig,
+    NwayDualEncoder,
+)
 from cldrd_tpu_torch.models.convert import (
+    cross_encoder_state_dict,
     dual_encoder_state_dict,
     load_checkpoint,
 )
@@ -35,36 +41,75 @@ UNPORTED = {"fused_qkv": False, "softmax_in_compute_dtype": False,
             "remat": False, "remat_policy": "full"}
 
 
-def model_config_from_args(args: argparse.Namespace) -> DistilBertConfig:
-    """``--model-config`` (JSON file or inline JSON; the reference's keys)
-    or ``--model-size``, then ``--attention-impl``, ``--dropout`` and
-    ``--attention-dropout`` where given."""
-    spec = getattr(args, "model_config", None)
-    if spec:
-        if os.path.exists(spec):
-            with open(spec) as f:
-                overrides = json.load(f)
-        else:
-            overrides = json.loads(spec)
-        for key, default in UNPORTED.items():
-            value = overrides.pop(key, default)
-            if value != default:
-                raise NotImplementedError(
-                    f"model config {key}={value!r}: not ported yet")
-        cfg = DistilBertConfig(**overrides)
-    elif getattr(args, "model_size", "full") == "tiny":
-        cfg = DistilBertConfig.tiny()
+def _config_overrides(spec: str) -> dict:
+    """``--model-config``: a JSON file path or inline JSON, with the
+    reference's keys; the unported fields must keep their defaults."""
+    if os.path.exists(spec):
+        with open(spec) as f:
+            overrides = json.load(f)
     else:
-        cfg = DistilBertConfig()
-    flags = {"attention_impl": getattr(args, "attention_impl", None),
-             "dropout": getattr(args, "dropout", None),
-             "attention_dropout": getattr(args, "attention_dropout", None)}
+        overrides = json.loads(spec)
+    for key, default in UNPORTED.items():
+        value = overrides.pop(key, default)
+        if value != default:
+            raise NotImplementedError(
+                f"model config {key}={value!r}: not ported yet")
+    return overrides
+
+
+def _config(arch: str, size: str, spec: Optional[str], full_bert,
+            **flags) -> DistilBertConfig:
+    """``spec`` (``--model-config``-style overrides) or ``size``, then the
+    flags that are not None; ``arch='bert'`` makes it a ``BertConfig``,
+    whose full size ``full_bert`` gives (DistilBERT's is distilbert-base)."""
+    cfg_cls = BertConfig if arch == "bert" else DistilBertConfig
+    if spec:
+        cfg = cfg_cls(**_config_overrides(spec))
+    elif size == "tiny":
+        cfg = cfg_cls.tiny()
+    else:
+        cfg = full_bert() if arch == "bert" else cfg_cls()
     return dataclasses.replace(
         cfg, **{k: v for k, v in flags.items() if v is not None})
 
 
-def add_model_args(p: argparse.ArgumentParser, train: bool = False) -> None:
-    """The model flags of every CLI; ``train`` adds the dropout rates."""
+def model_config_from_args(args: argparse.Namespace) -> DistilBertConfig:
+    """``--model-config`` (JSON file or inline JSON; the reference's keys)
+    or ``--model-size``, then ``--attention-impl``, ``--dropout`` and
+    ``--attention-dropout`` where given. ``--arch bert`` makes it a
+    ``BertConfig`` (full size: bert-base, 12 layers), which stands up BERT
+    towers."""
+    return _config(
+        getattr(args, "arch", "distilbert") or "distilbert",
+        getattr(args, "model_size", "full"),
+        getattr(args, "model_config", None),
+        lambda: BertConfig(n_layers=12),
+        attention_impl=getattr(args, "attention_impl", None),
+        dropout=getattr(args, "dropout", None),
+        attention_dropout=getattr(args, "attention_dropout", None))
+
+
+def cross_encoder_config(arch: str, size: str = "full",
+                         spec: Optional[str] = None,
+                         attention_impl: Optional[str] = None
+                         ) -> DistilBertConfig:
+    """A cross-encoder's config: ``--model-config``-style overrides, or
+    ``size``; full size is MiniLM-L6 for ``arch='bert'`` (the reference
+    teacher) and distilbert-base otherwise."""
+    return _config(arch, size, spec, BertConfig.minilm_l6,
+                   attention_impl=attention_impl)
+
+
+def add_model_args(p: argparse.ArgumentParser, train: bool = False,
+                   cosine: bool = True) -> None:
+    """The model flags of every CLI; ``train`` adds the dropout rates;
+    ``cosine=False`` leaves out ``--cosine`` where no embedding is scored
+    (export, the cross-encoder teacher), so argparse rejects it."""
+    p.add_argument("--arch", choices=("distilbert", "bert"),
+                   default="distilbert",
+                   help="encoder family: DistilBERT towers or BERT "
+                        "(token-type embeddings; MiniLM/bert-base). "
+                        "Checkpoint conversion reads either layout")
     p.add_argument("--model-size", choices=("full", "tiny"), default="full",
                    help="'tiny' is the hermetic test configuration")
     p.add_argument("--model-config", default=None,
@@ -87,9 +132,11 @@ def add_model_args(p: argparse.ArgumentParser, train: bool = False) -> None:
                    help="one tower for queries and passages")
     p.add_argument("--tokenizer", default="hash",
                    help="'hash' (hermetic) or an HF tokenizer name/path")
-    p.add_argument("--cosine", action="store_true", default=False,
-                   help="the checkpoint was trained with cosine scoring: "
-                        "L2-normalize every embedding at encode time")
+    if cosine:
+        p.add_argument("--cosine", action="store_true", default=False,
+                       help="the checkpoint was trained with cosine "
+                            "scoring: L2-normalize every embedding at "
+                            "encode time")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
 
@@ -119,8 +166,8 @@ def load_dual_encoder(checkpoint: Optional[str], cfg: DistilBertConfig,
                       share_weights: bool, cosine: bool, dtype,
                       device, seed: int = 0) -> NwayDualEncoder:
     """The dual encoder on ``device`` in eval mode, with weights from a
-    reference ``.pth.tar`` checkpoint or, without one, a random init from
-    ``seed``."""
+    checkpoint (the reference's or the port's ``.pth.tar``, or a JAX
+    ``.msgpack``) or, without one, a random init from ``seed``."""
     dev = resolve_device(device)
     share_weights = bool(share_weights)
     model = NwayDualEncoder(cfg, share_weights=share_weights,
@@ -130,6 +177,25 @@ def load_dual_encoder(checkpoint: Optional[str], cfg: DistilBertConfig,
                                      share_weights)
         # keys the towers do not hold (HF buffers, heads) are ignored, as
         # the reference's converter ignores them; missing ones raise
+        missing = model.load_state_dict(sd, strict=False).missing_keys
+        if missing:
+            raise KeyError(f"{checkpoint}: missing weights {missing[:5]}")
+    else:
+        model.reset_parameters(seed=seed)
+    return model.to(dev).eval()
+
+
+def load_cross_encoder(checkpoint: Optional[str], cfg: DistilBertConfig,
+                       arch: str, dtype, device, seed: int = 0
+                       ) -> CrossEncoder:
+    """The cross-encoder on ``device`` in eval mode, with weights from a
+    checkpoint (HF ``BertForSequenceClassification`` /
+    ``DistilBertForSequenceClassification`` ``.pth.tar``/``.bin``/``.pt``,
+    or a JAX ``.msgpack``) or, without one, a random init from ``seed``."""
+    dev = resolve_device(device)
+    model = CrossEncoder(cfg, dtype=dtype, arch=arch)
+    if checkpoint:
+        sd = cross_encoder_state_dict(load_checkpoint(checkpoint), arch)
         missing = model.load_state_dict(sd, strict=False).missing_keys
         if missing:
             raise KeyError(f"{checkpoint}: missing weights {missing[:5]}")

@@ -10,9 +10,17 @@ every search shape, then answer queries until stopped.
 API (stdlib ``http.server``, JSON over POST):
 
 - ``POST /search``  {"queries": ["text", ...], "k": 10,
-  "exclude_ids": [int, ...]?} -> {"results": [[{"id": int, "score":
-  float}, ...], ...], "elapsed_ms": float}. ``exclude_ids`` drops ids by
-  over-fetch and needs k + len(exclude_ids) <= --topk.
+  "exclude_ids": [int, ...]?, "rerank_k": 50?} -> {"results": [[{"id":
+  int, "score": float}, ...], ...], "elapsed_ms": float}. ``exclude_ids``
+  drops ids by over-fetch and needs k + len(exclude_ids) <= --topk.
+  ``rerank_k``: two-stage mode: retrieve the top rerank_k, rescore them
+  with the resident cross-encoder (``--reranker``) against texts from
+  the ``--passages`` docstore (or added by ``/add``), return the top k
+  by its score; hits carry "score" (cross-encoder) and
+  "retrieval_score" (dot).
+- ``POST /rerank``  {"query": "text", "passages": ["doc", ...], "k": 5?}
+  -> {"results": [{"index": int, "score": float}, ...]}: the second
+  stage over explicit texts, sorted by score descending.
 - ``POST /add``     {"ids": [int, ...], "texts": ["doc", ...]} -> {"ok":
   true, "n_vectors": N}  (passage-tower encode -> ``index.add``)
 - ``POST /remove``  {"ids": [int, ...]} -> {"ok": true, "n_vectors": N}
@@ -36,9 +44,12 @@ each request's ``k`` (requests with a larger k are refused up front).
 ``--max-pending`` bounds the queue: beyond it requests get 503 +
 Retry-After.
 
-Not in this port yet: the cross-encoder stage (``--reranker*``,
-``--passages``, ``/rerank``, ``rerank_k``; ROADMAP item 11) and
-``--shards`` other than 1 (ROADMAP item 13). Their flags parse and raise.
+The cross-encoder stage collates through
+``RerankingDataset.from_pairs`` and ``batches(--rerank-batch-size)``,
+the offline rerank path's contract, so its scores equal
+``cli.rerank_eval --mode cross``'s on the same pairs at that batch
+shape. Not in this port yet: ``--shards`` other than 1 (ROADMAP A6);
+the flag parses and raises.
 """
 from __future__ import annotations
 
@@ -58,7 +69,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from cldrd_tpu_torch.data.docstore import TsvDocStore
+from cldrd_tpu_torch.data.reranking_dataset import RerankingDataset
 from cldrd_tpu_torch.device import dtype_from_name
+from cldrd_tpu_torch.evaluation.reranking_evaluator import (
+    make_cross_encoder_score_fn,
+)
 from cldrd_tpu_torch.index import (
     DiskRefiner,
     IVFIndex,
@@ -73,16 +89,14 @@ from cldrd_tpu_torch.index.ivf_index import IVF_META_NAME
 from .common import (
     add_model_args,
     build_tokenizer,
+    cross_encoder_config,
+    load_cross_encoder,
     load_dual_encoder,
     model_config_from_args,
     setup_logging,
 )
 
 logger = logging.getLogger("cldrd_tpu_torch.cli.serve")
-
-_NO_CROSS_ENCODER = ("this service carries no cross-encoder (the "
-                     "cross-encoder stage is ROADMAP item 11, not yet "
-                     "ported)")
 
 
 class ServiceOverloaded(RuntimeError):
@@ -128,6 +142,37 @@ def _on_device(dev: torch.device):
             else contextlib.nullcontext())
 
 
+class Reranker:
+    """The cross-encoder second stage, resident beside the index. Pairs
+    collate through ``RerankingDataset.from_pairs`` and ``batches()``,
+    padded to the fixed ``batch_size``."""
+
+    def __init__(self, score_fn, tokenizer, max_len: int, batch_size: int,
+                 with_token_type_ids: bool, arch: str):
+        self.score_fn = score_fn
+        self.tokenizer = tokenizer
+        self.max_len = max_len
+        self.batch_size = batch_size
+        self.with_token_type_ids = with_token_type_ids
+        self.arch = arch
+
+    def score_texts(self, query: str, passages: List[object]) -> np.ndarray:
+        """Cross-encoder scores of (query, passage) pairs in input order;
+        ``passages`` are plain texts or titled dicts (the docstore's
+        values). The caller holds the device lock."""
+        ds = RerankingDataset.from_pairs(
+            [(0, i) for i in range(len(passages))], {0: query},
+            dict(enumerate(passages)), self.tokenizer, is_cross_encoder=True,
+            max_len=self.max_len,
+            with_token_type_ids=self.with_token_type_ids)
+        out = np.zeros(len(passages), np.float32)
+        for batch in ds.batches(self.batch_size):
+            scores = self.score_fn(batch)
+            for i in range(batch.n_valid):
+                out[int(batch.pids[i])] = float(scores[i])
+        return out
+
+
 class SearchService:
     """Tokenize -> encode -> top-k, behind one device lock."""
 
@@ -136,10 +181,17 @@ class SearchService:
                  dynamic_batching: bool = True,
                  max_batch_wait_ms: float = 2.0,
                  passage_encode_fn=None, passage_max_length: int = 256,
-                 index_loader=None, max_pending: int = 256):
+                 index_loader=None, reranker: Optional[Reranker] = None,
+                 docstore=None, max_pending: int = 256):
         self.tokenizer = tokenizer
         self.encode_fn = encode_fn
         self.index = index
+        # two-stage serving: the cross-encoder and id -> text for it
+        self.reranker = reranker
+        self.docstore = docstore
+        # texts of documents added by /add stay rerankable (the docstore
+        # TSV predates them)
+        self._live_texts: dict = {}
         # blue/green reloads (POST /reload) load a directory in the mode
         # the daemon started with (flat/IVF, device dtype, precision)
         self._index_loader = index_loader
@@ -153,7 +205,7 @@ class SearchService:
         self.max_pending = int(max_pending)
         self._lock = threading.Lock()   # device passes and index swaps
         self.stats = {"requests": 0, "queries": 0, "device_batches": 0,
-                      "rejected_overload": 0}
+                      "reranked_queries": 0, "rejected_overload": 0}
         # guards the stats, the latency ring and the enqueue-vs-close
         # order: close() clears _worker under it BEFORE posting the
         # shutdown sentinel, so the sentinel is the queue's last item and
@@ -236,6 +288,10 @@ class SearchService:
                                             self.passage_max_length)
                     self.passage_encode_fn(self._pad(tokens,
                                                      self.encode_batch))
+            if self.reranker is not None:
+                # one padded rerank batch
+                with _on_device(self.device):
+                    self.reranker.score_texts("warmup", ["warmup"])
 
     def _pad(self, tokens, to: int):
         n = tokens["input_ids"].shape[0]
@@ -249,21 +305,34 @@ class SearchService:
                rerank_k=None):
         """Top-k hits per text. ``exclude_ids`` drops ids by over-fetch:
         every pass computes top-``default_k``, and k + |exclude| must fit
-        under it. ``rerank_k`` (the cross-encoder stage) is not ported."""
-        if rerank_k is not None:
-            raise ValueError(_NO_CROSS_ENCODER)
+        under it. ``rerank_k``: the first stage fetches the top rerank_k
+        (after exclusion), the cross-encoder rescores them against their
+        texts, and the top k by its score come back with both scores; the
+        first stage still coalesces through the micro-batcher."""
         k = int(k or self.default_k)
         exclude = frozenset(int(i) for i in (exclude_ids or ()))
-        if not 1 <= k <= self.default_k:
+        if rerank_k is not None:
+            if self.reranker is None:
+                raise ValueError(
+                    "this service carries no cross-encoder; restart with "
+                    "--reranker to use rerank_k")
+            rerank_k = int(rerank_k)
+            if not 1 <= k <= rerank_k:
+                raise ValueError(
+                    f"k must be in [1, rerank_k] ({k} vs rerank_k="
+                    f"{rerank_k}): the second stage returns the top k of "
+                    "the rerank_k retrieved candidates")
+        fetch_k = rerank_k if rerank_k is not None else k
+        if not 1 <= fetch_k <= self.default_k:
             # checked in the request thread: a bad k answers 400 and never
             # joins a group
             raise ValueError(
                 f"k must be in [1, {self.default_k}] (--topk sets the "
                 f"serving ceiling; every pass computes top-{self.default_k} "
                 f"and slices)")
-        if k + len(exclude) > self.default_k:
+        if fetch_k + len(exclude) > self.default_k:
             raise ValueError(
-                f"k + len(exclude_ids) ({k} + {len(exclude)}) exceeds "
+                f"k + len(exclude_ids) ({fetch_k} + {len(exclude)}) exceeds "
                 f"the serving ceiling {self.default_k} (--topk): the "
                 "exclusion filter over-fetches from the same per-pass top-k")
         if not texts:
@@ -277,10 +346,10 @@ class SearchService:
             self.stats["requests"] += 1
             self.stats["queries"] += len(texts)
             if worker is not None:
-                pending = _Pending(texts, k, exclude)
+                pending = _Pending(texts, fetch_k, exclude)
                 self._queue.put(pending)
         if worker is None:
-            out = [_filter_ranked(r, exclude, k)
+            out = [_filter_ranked(r, exclude, fetch_k)
                    for r in self._search_device(texts, self.default_k)]
         else:
             # the worker always answers; the timeout is a safety valve
@@ -290,13 +359,71 @@ class SearchService:
             if pending.error is not None:
                 raise pending.error
             out = pending.results
+        if rerank_k is not None:
+            out = [self._rerank_ranked(q, ranked, k)
+                   for q, ranked in zip(texts, out)]
         with self._state_lock:
             self._latencies.append(time.perf_counter() - t0)
         return out
 
-    def rerank(self, query, passages, k=None):
-        """POST /rerank: the cross-encoder stage, not ported."""
-        raise ValueError(_NO_CROSS_ENCODER)
+    # --------------------------------------------------- second stage
+
+    def _passages_for_ids(self, ids: List[int]) -> List[object]:
+        """Retrieved ids -> passage texts: texts added by /add first, then
+        the --passages docstore."""
+        out = [self._live_texts.get(i) for i in ids]
+        missing = [(j, i) for j, (i, t) in enumerate(zip(ids, out))
+                   if t is None]
+        if missing:
+            if self.docstore is None:
+                raise ValueError(
+                    "retrieved ids cannot be resolved to text: restart "
+                    "with --passages <collection.tsv>, or score explicit "
+                    "texts via POST /rerank")
+            try:
+                fetched = self.docstore.get_many([i for _, i in missing])
+            except KeyError as e:
+                raise ValueError(str(e))
+            for (j, _), text in zip(missing, fetched):
+                out[j] = text
+        return out
+
+    def _rerank_ranked(self, query: str, ranked, k: int):
+        """One query's retrieved hits rescored by the cross-encoder: the
+        top k by its score (stable: retrieval order breaks ties)."""
+        if not ranked:
+            return ranked
+        passages = self._passages_for_ids([h["id"] for h in ranked])
+        with self._lock, _on_device(self.device):
+            scores = self.reranker.score_texts(query, passages)
+        with self._state_lock:
+            self.stats["reranked_queries"] += 1
+        order = np.argsort(-scores, kind="stable")[:k]
+        return [{"id": ranked[i]["id"], "score": float(scores[i]),
+                 "retrieval_score": ranked[i]["score"]} for i in order]
+
+    def rerank(self, query: str, passages: List[str], k=None):
+        """POST /rerank: cross-encoder scores of explicit texts, sorted
+        descending, as (index, score)."""
+        if self.reranker is None:
+            raise ValueError("this service carries no cross-encoder; "
+                             "restart with --reranker to use /rerank")
+        if not isinstance(query, str):
+            raise ValueError("'query' must be a string")
+        if (not isinstance(passages, list) or not passages
+                or not all(isinstance(t, str) for t in passages)):
+            raise ValueError("'passages' must be a non-empty list of strings")
+        k = len(passages) if k is None else int(k)
+        if not 1 <= k <= len(passages):
+            raise ValueError(
+                f"k must be in [1, len(passages)] (got {k} for "
+                f"{len(passages)} passages)")
+        with self._lock, _on_device(self.device):
+            scores = self.reranker.score_texts(query, passages)
+        with self._state_lock:
+            self.stats["reranked_queries"] += 1
+        order = np.argsort(-scores, kind="stable")[:k]
+        return [{"index": int(i), "score": float(scores[i])} for i in order]
 
     # ------------------------------------------------------- live updates
 
@@ -324,6 +451,9 @@ class SearchService:
             new = self.index.add(np.concatenate(embs),
                                  np.asarray(ids, np.int64))
             self.index = new
+        if self.reranker is not None:
+            for i, t in zip(ids, texts):
+                self._live_texts[int(i)] = t
         return new.n_vectors
 
     def remove_documents(self, ids: List[int]) -> int:
@@ -332,7 +462,10 @@ class SearchService:
             raise ValueError("'ids' must be a non-empty list")
         with self._lock:
             self.index = self.index.remove([int(i) for i in ids])
-            return self.index.n_vectors
+            n = self.index.n_vectors
+        for i in ids:
+            self._live_texts.pop(int(i), None)
+        return n
 
     def reload_index(self, index_dir: str) -> int:
         """Blue/green swap: load a NEW store in the startup mode and warm
@@ -429,6 +562,8 @@ class _Handler(BaseHTTPRequestHandler):
             payload["n_buckets"] = idx.n_buckets
         if hasattr(idx, "factor"):  # refine tier on top
             payload["refine_factor"] = idx.factor
+        if self.service.reranker is not None:
+            payload["reranker"] = self.service.reranker.arch
         self._reply(200, payload)
 
     def do_POST(self):  # noqa: N802
@@ -451,7 +586,7 @@ class _Handler(BaseHTTPRequestHandler):
                     rerank_k=req.get("rerank_k"))}
             elif self.path == "/rerank":
                 payload = {"results": self.service.rerank(
-                    req.get("query"), req.get("passages"), req.get("k"))}
+                    req["query"], req["passages"], req.get("k"))}
             elif self.path == "/add":
                 n = self.service.add_documents(
                     [int(i) for i in req["ids"]], req["texts"])
@@ -483,12 +618,6 @@ class _Handler(BaseHTTPRequestHandler):
         logger.info("%s " + fmt, self.address_string(), *args)
 
 
-# the cross-encoder stage's flags (ROADMAP item 11): parsed, refused
-_RERANK_FLAGS = ("reranker", "reranker_checkpoint", "reranker_size",
-                 "reranker_config", "reranker_tokenizer",
-                 "rerank_max_length", "rerank_batch_size", "passages")
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -509,7 +638,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device store dtype (int8 = per-row-scaled codes)")
     p.add_argument("--shards", type=int, default=1,
                    help="shard the corpus over this many devices (only 1: "
-                        "multi-GPU is ROADMAP item 13)")
+                        "multi-GPU is ROADMAP A6)")
     p.add_argument("--ivf", action="store_true",
                    help="serve the IVF index at <index>/ivf (cli.index "
                         "--ivf-nlist): probe --nprobe cells per query "
@@ -523,23 +652,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "<index> (memmapped; FAISS IndexRefineFlat) and "
                         "return the refined top-k")
     p.add_argument("--reranker", choices=("distilbert", "bert"), default=None,
-                   help="cross-encoder second stage (not ported: ROADMAP "
-                        "item 11)")
+                   help="keep a cross-encoder second stage resident: "
+                        "enables POST /rerank and 'rerank_k' on /search "
+                        "('bert' = the MiniLM teacher's family)")
     p.add_argument("--reranker-checkpoint", default=None,
-                   help="cross-encoder weights (ROADMAP item 11)")
+                   help="cross-encoder weights (HF .pth.tar/.bin/.pt or a "
+                        "JAX .msgpack); omitted = random init")
     p.add_argument("--reranker-size", choices=("full", "tiny"),
-                   default="full", help="(ROADMAP item 11)")
+                   default="full",
+                   help="'full' = MiniLM-L6 for --reranker bert, "
+                        "distilbert-base otherwise")
     p.add_argument("--reranker-config", default=None,
-                   help="(ROADMAP item 11)")
+                   help="cross-encoder config overrides as a JSON file "
+                        "path or inline JSON (over --reranker-size)")
     p.add_argument("--reranker-tokenizer", default=None,
-                   help="(ROADMAP item 11)")
+                   help="tokenizer of the cross-encoder (default: "
+                        "--tokenizer)")
     p.add_argument("--rerank-max-length", type=int, default=256,
-                   help="(ROADMAP item 11)")
+                   help="joined [CLS] q [SEP] p [SEP] length")
     p.add_argument("--rerank-batch-size", type=int, default=32,
-                   help="(ROADMAP item 11)")
+                   help="fixed pair-batch shape of the cross-encoder")
     p.add_argument("--passages", default=None,
-                   help="collection TSV docstore for rerank_k (ROADMAP "
-                        "item 11)")
+                   help="collection TSV (pid\\ttext or pid\\ttitle\\tpara) "
+                        "mmap'd as a docstore so rerank_k can resolve "
+                        "retrieved ids to texts")
     p.add_argument("--max-batch-wait-ms", type=float, default=2.0,
                    help="dynamic micro-batching window: how long the device "
                         "worker waits for more concurrent requests")
@@ -557,20 +693,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    defaults = build_parser().parse_args(["--index", "x"])
-    given = [f"--{name.replace('_', '-')}" for name in _RERANK_FLAGS
-             if getattr(args, name) != getattr(defaults, name)]
-    if given:
-        raise SystemExit(f"{', '.join(given)}: the cross-encoder stage is "
-                         "ROADMAP item 11, not yet ported")
-    if args.shards != 1:
-        raise SystemExit(f"--shards {args.shards}: multi-GPU serving is "
-                         "ROADMAP item 13, not yet ported")
+def _build_reranker(args) -> Optional[Reranker]:
+    """The resident cross-encoder of ``--reranker`` (bf16 compute)."""
+    if not args.reranker:
+        return None
+    # --attention-impl applies to every model the daemon holds
+    rcfg = cross_encoder_config(args.reranker, args.reranker_size,
+                                args.reranker_config, args.attention_impl)
+    if args.rerank_max_length > rcfg.max_position_embeddings:
+        raise SystemExit(
+            f"--rerank-max-length {args.rerank_max_length} exceeds the "
+            "cross-encoder's max_position_embeddings="
+            f"{rcfg.max_position_embeddings}")
+    if not args.reranker_checkpoint:
+        logger.warning("--reranker without --reranker-checkpoint: the "
+                       "second stage scores with RANDOM weights")
+    model = load_cross_encoder(args.reranker_checkpoint, rcfg, args.reranker,
+                               torch.bfloat16, args.device)
+    tokenizer = build_tokenizer(args.reranker_tokenizer or args.tokenizer,
+                                vocab_size=rcfg.vocab_size)
+    logger.info("reranker: %s cross-encoder resident (pair batch %d x %d)",
+                args.reranker, args.rerank_batch_size,
+                args.rerank_max_length)
+    return Reranker(make_cross_encoder_score_fn(model), tokenizer,
+                    args.rerank_max_length, args.rerank_batch_size,
+                    with_token_type_ids=args.reranker == "bert",
+                    arch=args.reranker)
 
 
 def make_service(args) -> SearchService:
-    _refuse_unported(args)
+    if args.shards != 1:
+        raise SystemExit(f"--shards {args.shards}: multi-GPU serving is "
+                         "ROADMAP A6, not yet ported")
     cfg = model_config_from_args(args)
     for flag, val in (("--max-length", args.max_length),
                       ("--passage-max-length", args.passage_max_length)):
@@ -629,6 +783,13 @@ def make_service(args) -> SearchService:
         index = index_loader(args.index)
     except ValueError as e:
         raise SystemExit(str(e))
+    docstore = None
+    if args.passages:
+        if not os.path.exists(args.passages):
+            raise SystemExit(f"--passages {args.passages}: no such file")
+        docstore = TsvDocStore(args.passages)
+        logger.info("docstore: %d passages mmap'd from %s", len(docstore),
+                    args.passages)
     return SearchService(
         tokenizer, make_encode_fn(model, "query_embs"), index,
         args.max_length, args.encode_batch_size, args.topk,
@@ -636,7 +797,8 @@ def make_service(args) -> SearchService:
         max_batch_wait_ms=args.max_batch_wait_ms,
         passage_encode_fn=make_encode_fn(model, "passage_embs"),
         passage_max_length=args.passage_max_length,
-        index_loader=index_loader, max_pending=args.max_pending)
+        index_loader=index_loader, reranker=_build_reranker(args),
+        docstore=docstore, max_pending=args.max_pending)
 
 
 def serve(args, ready_event: Optional[threading.Event] = None):

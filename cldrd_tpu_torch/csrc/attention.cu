@@ -1,10 +1,13 @@
-// K3/K5: fused attention forward, K4: its backward, for the DistilBERT
-// encoder's training and encode paths: the route for fp32, head_dim 32
-// and rows of 256 < L <= 512 (ops/attention.py::_kernel_route). No
-// launch of the main path takes it: bf16 training launches with head_dim
-// 64 and L <= 256 take attention_sm90.cu, and bf16 head_dim-64 K5
-// launches take attention_infer.cu (L <= 64) or attention_sm90.cu's
-// forward (64 < L <= 256).
+// K3/K5: fused attention forward, K4: its backward, for the encoders'
+// training and encode paths: the route for fp32, head_dim 32 and rows of
+// 256 < L <= 512 (ops/attention.py::_kernel_route). On the main path its
+// forward takes the MiniLM-L6 cross-encoder teacher's K5 launches (bf16,
+// head_dim 32, B=128, L=256: five a teacher batch, in
+// cli.create_training_data, cli.rerank_eval --mode cross and serve's
+// rerank stage); bf16 training launches with head_dim 64 and L <= 256
+// take attention_sm90.cu, and bf16 head_dim-64 K5 launches take
+// attention_infer.cu (L <= 64) or attention_sm90.cu's forward
+// (64 < L <= 256).
 //
 // Replaces the TPU kernels cldrd_tpu/ops/attention.py::
 //   _train_fwd_kernel_factory (K3, launched by _train_fwd),

@@ -1,4 +1,6 @@
+from .bert import BertConfig, BertEncoder
 from .convert import load_checkpoint, params_from_flax
+from .cross_encoder import CrossEncoder
 from .distilbert import (
     DistilBertConfig,
     DistilBertEncoder,
@@ -8,6 +10,7 @@ from .distilbert import (
 )
 from .dual_encoder import DualEncoder, NwayDualEncoder
 
-__all__ = ["DistilBertConfig", "DistilBertEncoder", "DropoutRNG",
-           "DualEncoder", "NwayDualEncoder", "cls_pool", "load_checkpoint",
+__all__ = ["BertConfig", "BertEncoder", "CrossEncoder", "DistilBertConfig",
+           "DistilBertEncoder", "DropoutRNG", "DualEncoder",
+           "NwayDualEncoder", "cls_pool", "load_checkpoint",
            "params_from_flax", "resolve_attention_impl"]

@@ -128,7 +128,9 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Embeddings(nn.Module):
-    """word + position embeddings -> LayerNorm."""
+    """word + position (+ token-type) embeddings -> LayerNorm. A config
+    with a nonzero ``type_vocab_size`` (``BertConfig``) adds the segment
+    table, as the reference's shared module does."""
 
     def __init__(self, config: DistilBertConfig, dtype=torch.float32):
         super().__init__()
@@ -137,11 +139,16 @@ class Embeddings(nn.Module):
         self.word_embeddings = nn.Embedding(config.vocab_size, config.dim)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.dim)
+        types = getattr(config, "type_vocab_size", 0)
+        if types:
+            self.token_type_embeddings = nn.Embedding(types, config.dim)
         self.LayerNorm = LayerNorm(config.dim, eps=config.layer_norm_eps)
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+                rng: Optional[DropoutRNG] = None,
+                token_type_ids: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         seq_len = input_ids.shape[-1]
         if seq_len > self.config.max_position_embeddings:
             raise ValueError(
@@ -156,7 +163,14 @@ class Embeddings(nn.Module):
         table = self.position_embeddings.weight
         pos = table[:seq_len][None] if position_ids is None else \
             F.embedding(position_ids, table)
-        hidden = self.LayerNorm(word.to(self.dtype) + pos.to(self.dtype))
+        hidden = word.to(self.dtype) + pos.to(self.dtype)
+        if hasattr(self, "token_type_embeddings"):
+            # no token types: segment 0's row, broadcast
+            table = self.token_type_embeddings.weight
+            types = table[:1][None] if token_type_ids is None else \
+                F.embedding(token_type_ids, table)
+            hidden = hidden + types.to(self.dtype)
+        hidden = self.LayerNorm(hidden)
         return hidden if rng is None else rng.dropout(hidden,
                                                       self.config.dropout)
 
@@ -277,10 +291,14 @@ class DistilBertEncoder(nn.Module):
                 cls_only: bool = False,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+                rng: Optional[DropoutRNG] = None,
+                token_type_ids: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """``rng`` set = training mode (dropout on); ``position_ids`` /
-        ``segment_ids`` [B, L]: packed rows."""
-        hidden = self.embeddings(input_ids, position_ids, rng)
+        ``segment_ids`` [B, L]: packed rows; ``token_type_ids`` [B, L]
+        read only by a config with a token-type table (BERT)."""
+        hidden = self.embeddings(input_ids, position_ids, rng,
+                                 token_type_ids)
         n = len(self.transformer.layer)
         for i, block in enumerate(self.transformer.layer):
             hidden = block(hidden, attention_mask, segment_ids, rng,

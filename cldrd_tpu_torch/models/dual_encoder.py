@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .bert import encoder_class
 from .distilbert import (
     DistilBertConfig,
     DistilBertEncoder,
@@ -64,9 +65,11 @@ class NwayDualEncoder(nn.Module):
         self.in_batch_loss = in_batch_loss
         self.all_in_batch_neg = all_in_batch_neg
         self.dtype = dtype
-        self.query_encoder = DistilBertEncoder(config, dtype)
+        # a BertConfig stands up BERT towers, as in the reference
+        enc_cls = encoder_class(config)
+        self.query_encoder = enc_cls(config, dtype)
         self.passage_encoder = (self.query_encoder if share_weights
-                                else DistilBertEncoder(config, dtype))
+                                else enc_cls(config, dtype))
 
     def _norm(self, reps: torch.Tensor) -> torch.Tensor:
         return _l2_normalize(reps) if self.apply_cosine_similarity else reps

@@ -36,7 +36,8 @@ Each kernel has its plain PyTorch version beside it (``*_plain``), which
 repeats the reference kernel's arithmetic: a wrapper takes it for CPU
 tensors only, and on a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches by name, ``ENTRY_LAUNCHES`` by the C
-entry point they went through.
+entry point they went through, ``ROUTE_LAUNCHES`` by (name, entry point):
+K3 and K5 share the tiled and sm90 forwards.
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ SHORT_MAX_LEN = 64  # K5's short-row kernel: bf16, head_dim 64, L <= 64
 ENTRY_LAUNCHES = {"attn_fwd_launch": 0, "attn_bwd_launch": 0,
                   "attn_fwd_sm90_launch": 0, "attn_bwd_sm90_launch": 0,
                   "attn_infer_short_launch": 0}
+ROUTE_LAUNCHES = {(name, entry): 0 for name, entries in (
+    ("train_fwd", ("attn_fwd_launch", "attn_fwd_sm90_launch")),
+    ("train_bwd", ("attn_bwd_launch", "attn_bwd_sm90_launch")),
+    ("infer", ("attn_fwd_launch", "attn_fwd_sm90_launch",
+               "attn_infer_short_launch"))) for entry in entries}
 
 _M32 = 0xFFFFFFFF
 # the reference's int32 constants -1028477379 and -2048144789 as uint32
@@ -358,6 +364,7 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
             float(dropout_p), inv, scale, device=q.device)
     LAUNCHES[name] += 1
     ENTRY_LAUNCHES[entry] += 1
+    ROUTE_LAUNCHES[(name, entry)] += 1
     return out, (None if stats is None else (stats, ov))
 
 
@@ -404,6 +411,7 @@ def _launch_bwd(q, k, v, mask, seed, dropout_p, segment_ids, res, g):
             float(dropout_p), inv, inv32, scale, scale32, device=q.device)
     LAUNCHES["train_bwd"] += 1
     ENTRY_LAUNCHES[entry] += 1
+    ROUTE_LAUNCHES[("train_bwd", entry)] += 1
     return dq, dk, dv
 
 

@@ -7,7 +7,9 @@
 its weights (``cldrd_tpu.train.checkpoint.load_warm_start_params`` and
 the port's ``models.convert``). Writes go to a temporary file, are
 synced, then renamed over the target, so a preempted run never leaves a
-torn checkpoint. A flax ``.msgpack`` checkpoint is not read yet.
+torn checkpoint. A JAX ``Trainer``'s ``checkpoint_<step>.msgpack``
+(decoded by ``train/msgpack_io.py``) is read too: its ``params`` for a
+warm start, and for a resume also its AdamW moments and count.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from cldrd_tpu_torch.models.convert import (
     dual_encoder_state_dict,
     load_checkpoint as load_weights,
+    params_from_flax,
 )
 
 
@@ -49,12 +52,33 @@ def save_checkpoint(blob: Dict[str, Any], directory: str, step: int,
     return path
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """A full training checkpoint written by ``save_checkpoint``."""
-    if not path.endswith(".pth.tar"):
+def _from_flax_train_state(tree: Dict[str, Any], path: str
+                           ) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (``{params, opt_state, step, epoch}``, opt_state
+    of ``optax.chain(clip_by_global_norm, adamw)``) -> ``{"state_dict",
+    "adam": {"count", "mu", "nu"}, "step", "epoch"}``, the moments by the
+    port's parameter names."""
+    try:
+        adam = tree["opt_state"]["1"]["0"]
+        count, mu, nu = int(adam["count"]), adam["mu"], adam["nu"]
+    except (KeyError, TypeError):
         raise NotImplementedError(
-            f"{path}: the port resumes from its own .pth.tar checkpoints; "
-            "reading flax .msgpack checkpoints is not yet ported")
+            f"{path}: resuming reads the optimizer state of "
+            "optax.chain(clip_by_global_norm, adamw); this one (gradient "
+            "accumulation's optax.MultiSteps?) is not read yet")
+    return {"state_dict": params_from_flax(tree["params"]),
+            "adam": {"count": count, "mu": params_from_flax(mu),
+                     "nu": params_from_flax(nu)},
+            "step": int(tree["step"]), "epoch": int(tree["epoch"])}
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A full training checkpoint: the port's (``save_checkpoint``), or a
+    JAX ``Trainer``'s ``.msgpack`` (see ``_from_flax_train_state``)."""
+    if path.endswith(".msgpack"):
+        from .msgpack_io import load_flax_checkpoint
+
+        return _from_flax_train_state(load_flax_checkpoint(path), path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -72,5 +96,5 @@ def latest_checkpoint(directory: str,
 def load_warm_start_params(path: str, share_weights: bool = False
                            ) -> Dict[str, torch.Tensor]:
     """Weights only (``--model-checkpoint``): a reference or port
-    ``.pth.tar`` -> the port's state_dict. ``.msgpack`` raises."""
+    ``.pth.tar``, or a JAX ``.msgpack`` -> the port's state_dict."""
     return dual_encoder_state_dict(load_weights(path), share_weights)

@@ -61,6 +61,7 @@ class Optimizer:
                  warmup_steps: int = 4000, weight_decay: float = 0.01,
                  adam_epsilon: float = 1e-8, max_grad_norm: float = 1.0,
                  grad_accum_steps: int = 1):
+        self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         groups = [
             {"params": [p for n, p in named_params if decays(n)],
@@ -107,6 +108,25 @@ class Optimizer:
     def state_dict(self) -> Dict:
         return {"adamw": self.adamw.state_dict(), "mini_step": self.mini_step,
                 "acc": self.acc}
+
+    @torch.no_grad()
+    def load_adam_moments(self, count: int, mu: Dict[str, torch.Tensor],
+                          nu: Dict[str, torch.Tensor]) -> None:
+        """Resume from optax's adam state: ``count`` updates taken, the
+        first and second moments by parameter name; the schedule moves to
+        ``count`` as ``count`` ``step()`` calls would."""
+        for name, p in zip(self.names, self.params):
+            self.adamw.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype).clone()}
+        sched = self.scheduler.state_dict()
+        sched.update(last_epoch=count, _step_count=count + 1)
+        self.scheduler.load_state_dict(sched)
+        for group, base, factor in zip(self.adamw.param_groups,
+                                       self.scheduler.base_lrs,
+                                       self.scheduler.lr_lambdas):
+            group["lr"] = base * factor(count)
 
     def load_state_dict(self, state: Dict) -> None:
         self.adamw.load_state_dict(state["adamw"])

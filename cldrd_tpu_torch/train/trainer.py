@@ -40,6 +40,10 @@ from cldrd_tpu_torch.models import (
     DropoutRNG,
     NwayDualEncoder,
 )
+from cldrd_tpu_torch.models.convert import (
+    dual_encoder_state_dict,
+    dual_encoder_to_reference,
+)
 from cldrd_tpu_torch.utils import AverageMeter, write_train_logs
 
 from .checkpoint import (
@@ -204,7 +208,7 @@ class Trainer:
 
     def _save(self, step: int, epoch: int) -> str:
         return save_checkpoint(
-            {"state_dict": self.model.state_dict(),
+            {"state_dict": dual_encoder_to_reference(self.model.state_dict()),
              "optimizer": self.optimizer.state_dict(),
              "scheduler": self.optimizer.scheduler.state_dict(),
              "step": step, "epoch": epoch}, self.run_dir, step)
@@ -232,9 +236,13 @@ class Trainer:
             assert not cfg.model_checkpoint, \
                 "resume and model_checkpoint are exclusive"
             blob = load_checkpoint(cfg.resume)
-            self._load_params(blob["state_dict"])
-            self.optimizer.load_state_dict(blob["optimizer"])
-            self.optimizer.scheduler.load_state_dict(blob["scheduler"])
+            self._load_params(dual_encoder_state_dict(blob["state_dict"],
+                                                      cfg.share_weights))
+            if "adam" in blob:  # a JAX Trainer's .msgpack
+                self.optimizer.load_adam_moments(**blob["adam"])
+            else:
+                self.optimizer.load_state_dict(blob["optimizer"])
+                self.optimizer.scheduler.load_state_dict(blob["scheduler"])
             global_step = int(blob["step"])
             # the shuffle is seeded per epoch, so skipping the consumed
             # batches resumes at the exact batch

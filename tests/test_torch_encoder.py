@@ -108,8 +108,20 @@ def test_pth_tar_roundtrip(tmp_path):
               for k, v in _tokens(np.random.default_rng(2), 3, 16).items()}
     with torch.no_grad():
         assert torch.equal(model.query_embs(tokens), direct.query_embs(tokens))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_checkpoint(str(tmp_path / "x.msgpack"))
+    # a flax .msgpack of the same weights (a JAX Trainer checkpoint's
+    # layout) encodes identically too
+    from flax import serialization
+
+    blob = serialization.msgpack_serialize(
+        {"params": params, "opt_state": {}, "step": np.int32(7)})
+    (tmp_path / "x.msgpack").write_bytes(blob)
+    from_msgpack = NwayDualEncoder(DistilBertConfig.tiny())
+    from_msgpack.load_state_dict(dual_encoder_state_dict(
+        load_checkpoint(str(tmp_path / "x.msgpack"))))
+    from_msgpack.eval()
+    with torch.no_grad():
+        assert torch.equal(from_msgpack.query_embs(tokens),
+                           direct.query_embs(tokens))
 
 
 def test_position_table_length_is_checked():

@@ -810,6 +810,74 @@ def test_infer_sm90_route_equals_plain(length):
     assert torch.equal(out_x, ref_x)
 
 
+def _pair_mask(dev, b, length, g):
+    """Keys padded as the teacher's (query, passage) pairs are: 24-140
+    real tokens of 256."""
+    n = torch.randint(24, 141, (b, 1), generator=g, device=dev)
+    return (torch.arange(length, device=dev)[None] < n).int()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["normal", "q0", "k0"])
+def test_infer_tiled_route_at_the_teacher_shape(form):
+    """The MiniLM teacher's K5 launches (bf16, B=128, L=256, H=12, D=32,
+    pair padding) take attention.cu's tiled forward: within 2e-2 of the
+    plain version on normal data; EQUAL to it on exact inputs (every
+    score of a row equal, v one-hot over keys)."""
+    dev = _device()
+    b, length, h, d = 128, 256, 12, 32
+    g = torch.Generator(device=dev).manual_seed(32)
+    shape = (b, length, h, d)
+    mask = _pair_mask(dev, b, length, g)
+    if form == "normal":
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+    else:
+        pos = torch.arange(length, device=dev)
+        v = (pos[:, None] % d == torch.arange(d, device=dev)[None, :])
+        v = v[None, :, None, :].expand(shape).to(torch.bfloat16).contiguous()
+        zero = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        if form == "q0":
+            q, k = zero, v
+        else:
+            q, k = v, zero.clone()
+            k[..., 0] = 1
+    assert att._kernel_route(torch.bfloat16, length, d, "infer") == "tiled"
+    key = ("infer", "attn_fwd_launch")
+    before = att.ENTRY_LAUNCHES["attn_fwd_launch"], att.ROUTE_LAUNCHES[key]
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (att.ENTRY_LAUNCHES["attn_fwd_launch"],
+            att.ROUTE_LAUNCHES[key]) == (before[0] + 1, before[1] + 1)
+    assert ref.abs().max() > 0
+    if form == "normal":
+        assert _rel(out, ref) <= 2e-2
+    else:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_route_launches_tell_k3_from_k5_on_a_shared_forward():
+    """K3 and K5 at fp32, head_dim 32 both take attention.cu's tiled
+    forward: ENTRY_LAUNCHES counts both under its entry point,
+    ROUTE_LAUNCHES each under its own (name, entry point)."""
+    dev = _device()
+    q, k, v, _, mask, _ = _attn_inputs(dev, 4, 64, 2, 32, torch.float32,
+                                       False, 5)
+    assert att._kernel_route(torch.float32, 64, 32, "train_fwd") == "tiled"
+    keys = [("train_fwd", "attn_fwd_launch"), ("infer", "attn_fwd_launch")]
+    entry = att.ENTRY_LAUNCHES["attn_fwd_launch"]
+    before = [att.ROUTE_LAUNCHES[key] for key in keys]
+    att.flash_attention_train(q, k, v, mask, 7, 0.1)
+    att.flash_attention(q, k, v, mask)
+    att.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert att.ENTRY_LAUNCHES["attn_fwd_launch"] == entry + 3
+    assert [att.ROUTE_LAUNCHES[key] for key in keys] == [before[0] + 1,
+                                                        before[1] + 2]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,length,d,entry", [
     (torch.bfloat16, 64, 64, "attn_infer_short_launch"),

@@ -145,8 +145,12 @@ def test_cli_rejects_flags_of_later_slices():
         ["--index", "i", "--queries", "q", "--run", "r",
          "--attention-impl", "pallas"])
     assert args.attention_impl == "pallas"
+    # --arch came back with the teacher and rerank slice (BERT towers)
+    args = t_retrieve.build_parser().parse_args(
+        ["--index", "i", "--queries", "q", "--run", "r", "--arch", "bert"])
+    assert args.arch == "bert"
     for argv in (["--shards", "2"], ["--dropout", "0.1"],
-                 ["--profile-dir", "x"], ["--arch", "bert"]):
+                 ["--profile-dir", "x"]):
         with pytest.raises(SystemExit):
             t_retrieve.build_parser().parse_args(
                 ["--index", "i", "--queries", "q", "--run", "r", *argv])

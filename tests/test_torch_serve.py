@@ -295,8 +295,10 @@ def test_serve_ivfpq_refine(artifacts):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--reranker", "distilbert"], ["--passages", "c.tsv"],
-    ["--rerank-batch-size", "8"], ["--shards", "2"],
+    ["--reranker", "distilbert", "--rerank-max-length", "513"],
+    ["--passages", "missing.tsv"],
+    ["--reranker", "bert", "--reranker-size", "tiny",
+     "--rerank-max-length", "65"], ["--shards", "2"],
     ["--refine-factor", "4"], ["--ivf", "--refine-factor", "0"],
     ["--ivf", "--nprobe", "0"]])
 def test_serve_refuses_what_it_does_not_do(artifacts, argv):

@@ -428,9 +428,28 @@ def test_cli_curriculum_and_train(tmp_path):
     assert res[1:] == full[2:] and len(full) == 3
     assert "pack_passages: true" in (runs / "packed" / "config.yaml"
                                      ).read_text()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli_train.main([*train, "--experiment-name", "m",
-                        "--model-checkpoint", str(tmp_path / "x.msgpack")])
+    # a warm start from a flax .msgpack (a JAX init, in a Trainer
+    # checkpoint's layout) reads exactly those weights
+    from flax import serialization
+
+    from cldrd_tpu_torch.models.convert import params_from_flax
+    from cldrd_tpu_torch.train import load_warm_start_params
+
+    ids = jnp.ones((1, 8), jnp.int32)
+    params = JaxDualEncoder(JaxConfig.tiny()).init(
+        jax.random.PRNGKey(3), {"input_ids": ids, "attention_mask": ids},
+        {"input_ids": ids[:, None], "attention_mask": ids[:, None]}
+    )["params"]
+    path = str(tmp_path / "x.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.msgpack_serialize(
+            {"params": params, "step": np.int32(5)}))
+    loaded = load_warm_start_params(path)
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    assert loaded.keys() == want.keys()
+    assert all(torch.equal(loaded[k], want[k]) for k in want)
+    assert cli_train.main([*train, "--experiment-name", "m",
+                           "--model-checkpoint", path]) == 0
 
 
 def test_model_config_flags_mean_what_they_mean_in_the_reference():
