@@ -57,9 +57,12 @@ Phases (each raises on any failure; the script then exits non-zero):
    the query tower's padding (EQUAL on exact inputs) and timed beside
    attention.cu's tiled forward forced on the same inputs and SDPA. K5
    at the MiniLM-L6 teacher's shape (B=128, L=256, H=12, D=32, bf16,
-   pairs of 39-90 real tokens) takes attention.cu's tiled forward: within
+   pairs of 39-90 real tokens) takes attention_infer_d32.cu: within
    2e-2 of its plain version on normal data, EQUAL on exact inputs (two
-   forms), timed beside the plain version, its bound and SDPA.
+   forms) with pair padding, with one all-masked batch row and with a
+   mask that has holes; timed beside attention.cu's tiled forward forced
+   on the same inputs (its earlier route), the plain version, its
+   bound and SDPA, with the blocks an SM holds.
    Every time in the kernels line is a device time: the summed
    durations of the kernels one call launches
    (torch.profiler; a trace whose kernel counts show lost records is
@@ -99,12 +102,15 @@ Phases (each raises on any failure; the script then exits non-zero):
    index of the 1,024 queries; cli.create_training_data --teacher-arch
    bert scores the first 512 queries x their top 100 of the pipeline's
    run (51,200 pairs, bf16, B=128, L=256, --attention-impl pallas) and
-   writes the four curriculum files: 5 tiled K5 launches a batch, every
+   writes the four curriculum files: 5 K5 launches a batch, every one
+   through attention_infer_d32.cu (none through the tiled forward), every
    score finite, the first 256 pairs within 0.2 of the spread of the
    same model's scores with attention_plain, which the same model with
-   the mask ignored must miss (the check's power). cli.rerank_eval
-   runs --mode cross with the teacher and --mode dual with the trained
-   checkpoint over the same candidates; cli.export writes both formats,
+   the mask ignored must miss (the check's power). One score call is
+   traced (torch.profiler) and its device time split by kernel class
+   beside its wall time. cli.rerank_eval runs --mode cross with the
+   teacher and --mode dual with the trained checkpoint over the same
+   candidates; cli.export writes both formats,
    and each indexes 4,096 passages EQUAL to the trained checkpoint.
    Prints the teacher's pairs/s and the phase's seconds.
 7. serve: a clustered 1,048,576 x 768 int8 store (from --seed, with a
@@ -136,7 +142,8 @@ fails the run, every K1 and K2 launch of a window must have gone through
 the Hopper entry points (extract_topk_sm90_launch,
 fused_binmax_sm90_launch), and every K5 launch through those its path
 names (K5_ENTRIES: attn_infer_short_launch, and on the teacher and serve
-paths the sm90 and tiled forwards too); the kernels line sums the five
+paths the sm90 forward and attn_infer_d32_launch too); the kernels line
+sums the five
 windows. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
@@ -1236,66 +1243,111 @@ def _pair_mask(ctx, b, length):
     return (torch.arange(length, device=ctx["dev"])[None] < n).int()
 
 
+def _holed_mask(ctx, b, length):
+    """Real keys scattered (15% of the keys, values 1, 2 and -1: the
+    kernels test != 0) with every third 16-key tile empty."""
+    dev, gen = ctx["dev"], ctx["gen"]
+    val = torch.tensor([1, 2, -1], dtype=torch.int32, device=dev)
+    pick = torch.randint(0, 3, (b, length), generator=gen, device=dev)
+    keep = torch.rand(b, length, generator=gen, device=dev) < 0.15
+    keep &= (torch.arange(length, device=dev) // 16 % 3 != 1)[None]
+    return torch.where(keep, val[pick], torch.zeros_like(val[pick]))
+
+
+def _exact_forms(dev, shape):
+    """Inputs on which every score of a row is equal, as {form: (q, k,
+    v)}: q = 0 and k one-hot ("q0"), or q one-hot and every key e_0
+    ("k0"); v one-hot over dims by key position. Each probability is 1/l
+    rounded once, so a kernel must EQUAL its plain version on them."""
+    length, d = shape[1], shape[3]
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % d == torch.arange(d, device=dev)[None, :])
+    hot = hot[None, :, None, :].expand(shape).to(torch.bfloat16).contiguous()
+    zero = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    e0 = zero.clone()
+    e0[..., 0] = 1
+    return {"q0": (zero, hot, hot), "k0": (hot, e0, hot)}
+
+
 def _teacher_attention(ctx):
     """K5 at the MiniLM teacher's shape (bf16, B=128, L=256, H=12, D=32,
-    pair padding), which _kernel_route sends to attention.cu's tiled
-    forward: within 2e-2 of the largest magnitude of attention_plain on
-    normal data, EQUAL to it on exact inputs (every score of a row equal:
-    q = 0 and k one-hot, or q one-hot and every key e_0; v one-hot over
-    keys); timed beside its plain version, its bound and SDPA."""
+    pair padding), which _kernel_route sends to attention_infer_d32.cu:
+    within 2e-2 of the largest magnitude of attention_plain on normal
+    data, EQUAL to it on exact inputs (every score of a row equal: q = 0
+    and k one-hot, or q one-hot and every key e_0; v one-hot over keys),
+    each with the pair padding, with one batch row that has no real key
+    and with a mask that has holes; timed beside attention.cu's tiled
+    forward forced on the same inputs (its earlier route), the plain
+    version, its bound and SDPA; and the blocks an SM holds."""
+    import ctypes
+
     import torch.nn.functional as F
 
+    from cldrd_tpu_torch.ops import _build
     from cldrd_tpu_torch.ops import attention as att
 
     dev, bf16 = ctx["dev"], torch.bfloat16
     b, length = TEACHER_BATCH, TEACHER_L
     h, d = TEACHER_HEADS, TEACHER_HEAD_DIM
     route = att._kernel_route(bf16, length, d, "infer")
-    if route != "tiled":
+    if route != "d32":
         raise AssertionError(f"K5 at the teacher's shape takes {route}")
     shape = (b, length, h, d)
     mask = _pair_mask(ctx, b, length)
+    one_masked = mask.clone()
+    one_masked[b // 2] = 0
+    masks = {"pairs": mask, "one row all masked": one_masked,
+             "holes": _holed_mask(ctx, b, length)}
     q, k, v = (torch.randn(shape, generator=ctx["gen"], device=dev).to(bf16)
                for _ in range(3))
-    out = att.flash_attention(q, k, v, mask)
-    ref = att.attention_plain(q, k, v, mask)
-    err = (out.float() - ref.float()).abs().max().item()
-    if not err <= 2e-2 * ref.float().abs().max().item():
-        raise AssertionError(f"K5 tiled teacher shape: max abs err {err:.3g}")
-    pos = torch.arange(length, device=dev)
-    hot = (pos[:, None] % d == torch.arange(d, device=dev)[None, :])
-    hot = hot[None, :, None, :].expand(shape).to(bf16).contiguous()
-    zero = torch.zeros(shape, dtype=bf16, device=dev)
-    e0 = zero.clone()
-    e0[..., 0] = 1
-    for form, qx, kx in (("q0", zero, hot), ("k0", hot, e0)):
-        got = att.flash_attention(qx, kx, hot, mask)
-        want = att.attention_plain(qx, kx, hot, mask)
-        if not (want.abs().max() > 0 and torch.equal(got, want)):
-            raise AssertionError(f"K5 tiled teacher shape exact ({form}): "
-                                 f"{int((got != want).sum())} elements "
-                                 "differ from the plain version")
-    del hot, zero, e0
+    errs = {}
+    for tag, m in masks.items():
+        ref = att.attention_plain(q, k, v, m)
+        errs[tag] = (att.flash_attention(q, k, v, m).float()
+                     - ref.float()).abs().max().item()
+        if not errs[tag] <= 2e-2 * ref.float().abs().max().item():
+            raise AssertionError(f"K5 d32 teacher shape, {tag}: max abs "
+                                 f"err {errs[tag]:.3g}")
+    exact = _exact_forms(dev, shape)
+    for tag, m in masks.items():
+        for form, xs in exact.items():
+            got = att.flash_attention(*xs, m)
+            want = att.attention_plain(*xs, m)
+            if not (want.abs().max() > 0 and torch.equal(got, want)):
+                raise AssertionError(
+                    f"K5 d32 teacher shape exact ({form}, {tag}): "
+                    f"{int((got != want).sum())} elements differ from the "
+                    "plain version")
+    del exact, masks, one_masked
     amask = (mask != 0)[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     nbytes, ops = _attn_bytes_ops(b, length, bf16, 4, 2, heads=h,
                                   head_dim=d, keys=int(mask.sum()))
+    k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
+    with _train_attention_route("tiled"):  # attention.cu, the old route
+        t_tiled = device_ms(k5)
+    blocks = _build.load("attention_infer_d32").attn_infer_d32_blocks_per_sm
+    blocks.argtypes, blocks.restype = [ctypes.c_int], ctypes.c_int
     row = dict(
-        ms=device_ms(lambda: att.flash_attention(q, k, v, mask)),
+        ms=device_ms(k5), tiled_ms=t_tiled,
         plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
                            reps=3, warmup=1),
         bound=bound_ms(nbytes, ops, "bf16"),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=amask)), B=b, L=length, H=h, D=d)
-    ctx.setdefault("timings", {})["attention_infer_tiled"] = {"teacher": row}
-    ctx["k5_teacher_err"] = err
-    log(f"[kernels] K5 tiled (attention.cu) at the teacher's shape B={b} "
-        f"L={length} H={h} D={d} bf16, pair padding: agrees with the plain "
-        f"version (max abs err {err:.3g}; tolerance 2e-2 of the largest "
-        "magnitude), EQUAL on exact inputs (two forms); device ms: kernel "
-        f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}, "
+            qt, kt, vt, attn_mask=amask)), blocks_per_sm=blocks(length),
+        real_keys=int(mask.sum()), B=b, L=length, H=h, D=d)
+    ctx.setdefault("timings", {})["attention_infer_d32"] = {"teacher": row}
+    ctx["k5_teacher_err"] = max(errs.values())
+    log(f"[kernels] K5 d32 (attention_infer_d32.cu) at the teacher's shape "
+        f"B={b} L={length} H={h} D={d} bf16: agrees with the plain version "
+        f"(max abs err {errs}; tolerance 2e-2 of the largest magnitude), "
+        "EQUAL on exact inputs (two forms) with pair padding, one row all "
+        f"masked and holes; {row['blocks_per_sm']} blocks an SM; device "
+        f"ms: kernel {row['ms']:.4f} (attention.cu's tiled forward, forced: "
+        f"{t_tiled:.4f}), plain {row['plain_ms']:.4f}, "
         f"scaled_dot_product_attention {row['library_ms']:.4f}, bound "
-        f"{row['bound'][0]:.4f} ({row['bound'][1]})")
+        f"{row['bound'][0]:.4f} ({row['bound'][1]}; {row['real_keys']} "
+        "real keys)")
     del q, k, v, mask, amask, qt, kt, vt
 
 
@@ -1645,16 +1697,26 @@ def _step_times(records, names, saved=()):
 
 
 def _kernel_class(name):
-    if "attn_fwd" in name:
+    if "attn_fwd" in name or "attn_infer" in name:
         return "attention forward (K3/K5)"
     if "attn_bwd" in name:
         return "attention backward (K4)"
     low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copies to and from the host, memsets"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
         return "matmul (cuBLAS)"
     if any(k in low for k in ("adam", "multi_tensor", "foreach")):
         return "optimizer"
     return "other (elementwise, norms, reductions, copies)"
+
+
+def _by_class(by_name):
+    """Device ms by kernel class from device ms by kernel name."""
+    out = {}
+    for name, ms in by_name.items():
+        out[_kernel_class(name)] = out.get(_kernel_class(name), 0.0) + ms
+    return out
 
 
 def _profile_steps(ctx, corpus, train_file, n_steps=3):
@@ -1700,11 +1762,8 @@ def _profile_steps(ctx, corpus, train_file, n_steps=3):
                 step(i)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_class = {}
         by_name = _device_ms_by_name(prof, n_steps)
-        for name, ms in by_name.items():
-            cls = _kernel_class(name)
-            by_class[cls] = by_class.get(cls, 0.0) + ms
+        by_class = _by_class(by_name)
         busy = sum(by_class.values())
         rows = batch.get("packed_passages", batch.get(
             "nway_passages"))["input_ids"].shape
@@ -1997,6 +2056,30 @@ def _teacher_sample_errors(model, sample, dev):
             float(np.abs(bad - want).max()) / spread, want)
 
 
+def _trace_score_call(fn, batch, calls=3):
+    """One teacher score call (tokens to the card, the cross-encoder, the
+    scores back) traced by torch.profiler (device activity only) over
+    ``calls`` calls after a warm-up one: device ms a call by kernel
+    class and by kernel, the call's wall ms and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    by_name = _device_ms_by_name(prof, calls)
+    by_class = _by_class(by_name)
+    busy = sum(by_class.values())
+    return {"calls": calls, "wall_ms": wall, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall, "by_class_ms": by_class,
+            "top_kernels_ms": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:10])}
+
+
 def phase_teacher(ctx):
     """The teacher and rerank path at full width: cli.retrieve_queries,
     cli.create_training_data with the MiniLM-L6 teacher, cli.rerank_eval
@@ -2055,13 +2138,15 @@ def phase_teacher(ctx):
     make_fn = cli_ctd.make_cross_encoder_score_fn
 
     def recording(model):
-        fn = make_fn(model)
+        fn = seen["fn"] = make_fn(model)
 
         def score(batch):
             t0 = time.perf_counter()
             out = fn(batch)
             seen["s"] += time.perf_counter() - t0
             seen["batches"] += 1
+            if seen["batches"] == 3:  # a full batch, traced below
+                seen["traced"] = batch
             seen["scores"].append(out[:batch.n_valid])
             if len(seen["sample"]) * TEACHER_BATCH < TEACHER_SAMPLE:
                 seen["sample"].append((batch.query_passage,
@@ -2069,8 +2154,9 @@ def phase_teacher(ctx):
             return out
         return score
 
-    tiled_key = ("infer", "attn_fwd_launch")
-    tiled0 = att.ROUTE_LAUNCHES[tiled_key]
+    keys = {r: ("infer", f"attn_{r}_launch")
+            for r in ("infer_d32", "fwd")}
+    before = {r: att.ROUTE_LAUNCHES[key] for r, key in keys.items()}
     cli_ctd.make_cross_encoder_score_fn = recording
     try:
         lines, t_ctd = _call_cli(cli_ctd.main, [
@@ -2083,17 +2169,25 @@ def phase_teacher(ctx):
             *common])
     finally:
         cli_ctd.make_cross_encoder_score_fn = make_fn
-    tiled = att.ROUTE_LAUNCHES[tiled_key] - tiled0
+    d32, tiled = (att.ROUTE_LAUNCHES[keys[r]] - before[r]
+                  for r in ("infer_d32", "fwd"))
     files = _last_json(lines)
     want_batches = -(-n_pairs // TEACHER_BATCH)
     if seen["batches"] != want_batches:
         raise AssertionError(f"{seen['batches']} teacher batches")
-    if tiled != (TEACHER_LAYERS - 1) * want_batches:
-        raise AssertionError(f"{tiled} tiled K5 launches for "
-                             f"{want_batches} teacher batches")
+    if d32 != (TEACHER_LAYERS - 1) * want_batches or tiled:
+        raise AssertionError(f"{d32} head_dim-32 K5 launches and {tiled} "
+                             f"tiled for {want_batches} teacher batches")
     scores = np.concatenate(seen["scores"])
     if scores.shape != (n_pairs,) or not np.isfinite(scores).all():
         raise AssertionError("teacher scores not finite or malformed")
+    res["score_call_trace"] = trace = _trace_score_call(seen["fn"],
+                                                        seen.pop("traced"))
+    log(f"[teacher] one score call (B={TEACHER_BATCH} pairs, traced over "
+        f"{trace['calls']} calls): wall {trace['wall_ms']:.3f} ms, device "
+        f"{trace['device_ms']:.3f} ms (idle {trace['idle_share']:.1%}); by "
+        "class: " + json.dumps(trace["by_class_ms"]) + "; top kernels: "
+        + json.dumps(trace["top_kernels_ms"]))
     stages = {}
     for stage, path in files.items():
         rows = [json.loads(x) for x in open(path)]
@@ -2116,15 +2210,16 @@ def phase_teacher(ctx):
     res["create_training_data"] = dict(
         pairs=n_pairs, seconds=t_ctd, pairs_per_s=n_pairs / t_ctd,
         score_s=seen["s"], score_pairs_per_s=n_pairs / seen["s"],
-        batches=want_batches, tiled_launches=tiled, stages=stages,
+        batches=want_batches, d32_launches=d32, stages=stages,
         sample_rel_err=worst, sample_mask_ignored_rel_err=wrong,
         score_range=[float(scores.min()),
                                            float(scores.max())])
     log(f"[teacher] create_training_data: {n_pairs} pairs (MiniLM-L6, bf16,"
         f" B={TEACHER_BATCH}, L={TEACHER_L}) in {t_ctd:.1f} s = "
         f"{n_pairs / t_ctd:.1f} pairs/s end to end ({n_pairs / seen['s']:.1f}"
-        f" pairs/s in the score calls, {seen['s']:.1f} s); {tiled} tiled K5 "
-        f"launches = {TEACHER_LAYERS - 1} x {want_batches} batches; every "
+        f" pairs/s in the score calls, {seen['s']:.1f} s); {d32} K5 "
+        f"launches through attn_infer_d32_launch = {TEACHER_LAYERS - 1} x "
+        f"{want_batches} batches (tiled forward: 0); every "
         "score finite; "
         f"{TEACHER_SAMPLE} sampled pairs within {worst:.3g} of the spread "
         f"of the plain attention's scores (tolerance {TEACHER_SAMPLE_TOL}; "
@@ -2627,7 +2722,7 @@ def phase_serve(ctx):
         f"launches of its own work {flat_k1} (requests {span['extract_topk']})")
 
     # --- two stages: a flat daemon over the pipeline's index with the
-    # MiniLM teacher resident (K1, then K5 on attention.cu's tiled route)
+    # MiniLM teacher resident (K1, then K5 on attention_infer_d32.cu)
     res["rerank"] = _serve_rerank(ctx, own)
 
     # --- IVFPQ (SERVE_PQ_M x 4-bit) + exact refine over the flat disk store
@@ -2722,23 +2817,25 @@ def _serve_rerank(ctx, own):
         if [(h["index"], h["score"]) for h in answer["results"]] != want:
             raise AssertionError("a /rerank answer differs from the "
                                  "teacher scored directly")
-    tiled = start["k5:attn_fwd_launch"] + span["k5:attn_fwd_launch"]
+    d32 = (start["k5:attn_infer_d32_launch"]
+           + span["k5:attn_infer_d32_launch"])
     # teacher batches: a warm-up, the rerank_k and the /rerank requests
+    # (20 passages in a batch of 128: rows with no real token, too)
     batches = 1 + (len(sent) * -(-RERANK_K // TEACHER_BATCH)
                    + len(explicit) * -(-20 // TEACHER_BATCH))
-    want_tiled = (TEACHER_LAYERS - 1) * batches
-    if tiled != want_tiled:
-        raise AssertionError(f"the rerank daemon made {tiled} tiled K5 "
-                             f"launches, not {want_tiled}")
+    want = (TEACHER_LAYERS - 1) * batches
+    if d32 != want:
+        raise AssertionError(f"the rerank daemon made {d32} head_dim-32 K5 "
+                             f"launches, not {want}")
     log(f"[serve] rerank daemon (MiniLM-L6 resident, pair batch "
         f"{TEACHER_BATCH} x {TEACHER_L}): {len(sent)} /search requests at "
         f"rerank_k={RERANK_K}, k={RERANK_TOP} and {len(explicit)} /rerank "
         "requests, every answer EQUAL to the teacher scored directly on "
-        f"the same pairs (ids and scores); tiled K5 launches {tiled} "
-        f"(start-up {start['k5:attn_fwd_launch']}), extract_topk "
+        f"the same pairs (ids and scores); head_dim-32 K5 launches {d32} "
+        f"(start-up {start['k5:attn_infer_d32_launch']}), extract_topk "
         f"{span['extract_topk']}")
     return {"start_s": dmn.start_s, "requests": len(sent) + len(explicit),
-            "tiled_launches": tiled,
+            "d32_launches": d32,
             "extract_topk_launches": span["extract_topk"]}
 
 
@@ -3242,16 +3339,16 @@ KERNELS = [
     # K5 by route (ops/attention.py::_kernel_route): the query encode's
     # L=30 on attention_infer.cu; passages at L=256 (the teacher path's
     # passage tower) on the sm90 forward; the MiniLM-L6 teacher's head_dim
-    # 32 on attention.cu's tiled forward, which no path trains on
+    # 32 on attention_infer_d32.cu
     ("attention_infer", ("attention", ("infer", "attn_infer_short_launch")),
      "csrc/attention_infer.cu", "cldrd_tpu/ops/attention.py:61", "encode",
      "k5_err"),
     ("attention_infer_sm90", ("attention", ("infer", "attn_fwd_sm90_launch")),
      "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:61", "L256",
      "k5_err"),
-    ("attention_infer_tiled", ("attention", ("infer", "attn_fwd_launch")),
-     "csrc/attention.cu", "cldrd_tpu/ops/attention.py:61", "teacher",
-     "k5_teacher_err"),
+    ("attention_infer_d32", ("attention", ("infer", "attn_infer_d32_launch")),
+     "csrc/attention_infer_d32.cu", "cldrd_tpu/ops/attention.py:61",
+     "teacher", "k5_teacher_err"),
     ("ivf_probe", ("ivf_probe", None), "csrc/ivf_probe.cu",
      "cldrd_tpu/ops/ivf_probe.py:60", "int8_full_b8", "k6_err"),
 ]
@@ -3275,13 +3372,14 @@ ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
            "fused_binmax": ("fused_binmax", "fused_binmax_sm90_launch")}
 # K5's entry points on each path: the query encode's L=30 takes the
 # short-row kernel; the teacher path adds its passage tower (L=256,
-# head_dim 64: the sm90 forward) and the MiniLM teacher (head_dim 32: the
-# tiled forward); so does the serve path's rerank daemon (its warm-up
-# encodes a passage at L=256)
+# head_dim 64: the sm90 forward) and the MiniLM teacher (head_dim 32:
+# attention_infer_d32.cu); so does the serve path's rerank daemon (its
+# warm-up encodes a passage at L=256). No path's K5 takes the tiled
+# forward (read, to show it stays 0)
 K5_ALL = ("attn_infer_short_launch", "attn_fwd_sm90_launch",
-          "attn_fwd_launch")
+          "attn_infer_d32_launch", "attn_fwd_launch")
 K5_ENTRIES = {"pipeline": ("attn_infer_short_launch",),
-              "teacher": K5_ALL, "serve": K5_ALL}
+              "teacher": K5_ALL[:3], "serve": K5_ALL[:3]}
 
 
 def reset_launches():
@@ -3384,9 +3482,9 @@ def main(argv=None) -> int:
             ("pipeline", phase_pipeline, ("extract_topk", "attention_infer")),
             ("teacher", phase_teacher,
              ("attention_infer", "attention_infer_sm90",
-              "attention_infer_tiled")),
+              "attention_infer_d32")),
             ("serve", phase_serve,
-             ("ivf_probe", "extract_topk", "attention_infer_tiled"))):
+             ("ivf_probe", "extract_topk", "attention_infer_d32"))):
         reset_launches()
         own = run(name, fn)
         # the serve phase checks its answers through the same kernels, so

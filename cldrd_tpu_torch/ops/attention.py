@@ -16,9 +16,12 @@ Replaces the TPU kernels of ``cldrd_tpu/ops/attention.py``:
   encode's L=30) takes ``csrc/attention_infer.cu`` (a warp per (b, h)
   row, rows padded to 32 or 64, ``mma.sync`` with the row in registers);
   ``64 < L <= 256`` takes the sm90 forward at p=0 without segments or
-  residual; the rest takes the tiled forward of ``csrc/attention.cu``.
-  Its backward recomputes through the plain einsum form, as the
-  reference's backward is XLA recompute.
+  residual; bf16 with ``head_dim`` 32 and ``L <= 256`` (the MiniLM-L6
+  teacher's B=128, L=256) takes ``csrc/attention_infer_d32.cu`` (a block
+  per (b, h), key tiles with no real key skipped, ``mma.sync`` with the
+  row in registers); the rest takes the tiled forward of
+  ``csrc/attention.cu``. Its backward recomputes through the plain
+  einsum form, as the reference's backward is XLA recompute.
 
 Layout ``[B, L, H, D]`` at every public function, as in the reference.
 The kernels take bf16 or fp32, ``head_dim`` 32 or 64 and any ``L`` up to
@@ -56,14 +59,20 @@ LAUNCHES = {"train_fwd": 0, "train_bwd": 0, "infer": 0}
 # the Hopper route's reach: bf16, head_dim 64, rows up to 256
 SM90_HEAD_DIM, SM90_MAX_LEN = 64, 256
 SHORT_MAX_LEN = 64  # K5's short-row kernel: bf16, head_dim 64, L <= 64
+# K5's head_dim-32 kernel: bf16, L <= 256 (the MiniLM-L6 teacher)
+D32_HEAD_DIM, D32_MAX_LEN = 32, 256
+# K5's own kernels by route: (source stem, C entry point)
+_INFER_KERNELS = {"short": ("attention_infer", "attn_infer_short_launch"),
+                  "d32": ("attention_infer_d32", "attn_infer_d32_launch")}
 ENTRY_LAUNCHES = {"attn_fwd_launch": 0, "attn_bwd_launch": 0,
                   "attn_fwd_sm90_launch": 0, "attn_bwd_sm90_launch": 0,
-                  "attn_infer_short_launch": 0}
+                  "attn_infer_short_launch": 0, "attn_infer_d32_launch": 0}
 ROUTE_LAUNCHES = {(name, entry): 0 for name, entries in (
     ("train_fwd", ("attn_fwd_launch", "attn_fwd_sm90_launch")),
     ("train_bwd", ("attn_bwd_launch", "attn_bwd_sm90_launch")),
     ("infer", ("attn_fwd_launch", "attn_fwd_sm90_launch",
-               "attn_infer_short_launch"))) for entry in entries}
+               "attn_infer_short_launch", "attn_infer_d32_launch")))
+    for entry in entries}
 
 _M32 = 0xFFFFFFFF
 # the reference's int32 constants -1028477379 and -2048144789 as uint32
@@ -299,18 +308,23 @@ def _kernel_route(dtype, length: int, head_dim: int, name: str) -> str:
     """The CUDA kernels a launch takes, by dtype and shape alone, for bf16
     with head_dim 64: "short" (``csrc/attention_infer.cu``) for K5
     (``name == "infer"``) with L <= 64; "sm90" (``csrc/attention_sm90.cu``)
-    for the rest with L <= 256. "tiled" (``csrc/attention.cu``) for
-    everything else: fp32, head_dim 32, 256 < L <= 512."""
+    for the rest with L <= 256. For bf16 K5 with head_dim 32 and
+    L <= 256: "d32" (``csrc/attention_infer_d32.cu``). "tiled"
+    (``csrc/attention.cu``) for everything else: fp32, K3/K4 at head_dim
+    32, 256 < L <= 512."""
     if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM:
         if name == "infer" and length <= SHORT_MAX_LEN:
             return "short"
         if length <= SM90_MAX_LEN:
             return "sm90"
+    if (dtype == torch.bfloat16 and head_dim == D32_HEAD_DIM
+            and name == "infer" and length <= D32_MAX_LEN):
+        return "d32"
     return "tiled"
 
 
 def _aligned(name, *tensors):
-    """The sm90 kernels copy 16-byte vectors: every operand starts on a
+    """The Hopper kernels copy 16-byte vectors: every operand starts on a
     16-byte boundary."""
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
@@ -332,11 +346,11 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
     ov = None
     inv, _, scale, _ = _scalars(float(dropout_p), d, q.dtype)
     route = _kernel_route(q.dtype, length, d, name)
-    if route == "short":  # K5 only: p=0, no segments, no residual
+    if route in _INFER_KERNELS:  # K5 only: p=0, no segments, no residual
         _aligned(name, q, k, v, out)
-        entry = "attn_infer_short_launch"
+        stem, entry = _INFER_KERNELS[route]
         _build.launch(
-            "attention_infer", entry,
+            stem, entry,
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, length, h, scale, device=q.device)

@@ -250,10 +250,106 @@ def test_wrappers_route_by_device():
     (torch.bfloat16, 256, 64, "infer", "sm90"),
     (torch.bfloat16, 257, 64, "infer", "tiled"),
     (torch.float32, 30, 64, "infer", "tiled"),
-    (torch.bfloat16, 30, 32, "infer", "tiled"),
+    (torch.bfloat16, 30, 32, "infer", "d32"),
     (torch.bfloat16, 64, 64, "train_fwd", "sm90"),    # short is K5's only
+    (torch.bfloat16, 256, 32, "infer", "d32"),        # the MiniLM teacher
+    (torch.bfloat16, 1, 32, "infer", "d32"),
+    (torch.bfloat16, 257, 32, "infer", "tiled"),
+    (torch.bfloat16, 256, 32, "train_fwd", "tiled"),  # d32 is K5's only
+    (torch.float32, 256, 32, "infer", "tiled"),
 ])
 def test_kernel_route_by_dtype_and_shape(dtype, length, d, name, route):
     """Which CUDA kernels a launch takes is a function of dtype, head_dim,
     L and the wrapper's name alone, pinned here without a card."""
     assert ta._kernel_route(dtype, length, d, name) == route
+
+
+# --------------------------------------- K5 at the MiniLM teacher's shape
+
+
+def _pair_masks(rng, bsz, seq):
+    """Masks as the teacher's rows have them, one row each: a pair's
+    prefix of real tokens (39-90 of 256), no real token at all (the padded
+    last batch of RerankingDataset), and real tokens with holes (whole
+    16-key tiles empty between them, values other than 1 real)."""
+    mask = np.zeros((bsz, seq), np.int32)
+    mask[0, :rng.integers(39, 91)] = 1
+    for i in range(2, bsz):
+        mask[i, 3:20] = 1
+        mask[i, 70:75] = 2
+        mask[i, 140] = -1
+        mask[i, rng.choice(seq, 12, replace=False)] = 1
+        mask[i, 5] = 0
+    return mask
+
+
+def _teacher_qkv(rng, bsz=3, seq=256, heads=2, dim=32):
+    return tuple(rng.standard_normal((bsz, seq, heads, dim)).astype(
+        np.float32) for _ in range(3))
+
+
+def _exact_qkv(form, bsz=3, seq=256, heads=2, dim=32):
+    """Every score of a row equal: q = 0 and k one-hot over dims, or q
+    one-hot and every key e_0; v one-hot over dims by key position."""
+    hot = np.broadcast_to((np.arange(seq)[:, None] % dim
+                           == np.arange(dim)[None, :])[None, :, None, :],
+                          (bsz, seq, heads, dim)).astype(np.float32)
+    zero = np.zeros_like(hot)
+    e0 = zero.copy()
+    e0[..., 0] = 1
+    return (zero, hot, hot) if form == "q0" else (hot, e0, hot)
+
+
+def _k5_pair(q, k, v, mask):
+    """K5 of both packages on the same bf16 inputs: the JAX kernel in
+    Pallas interpret mode and the port's plain version, as float32."""
+    jout = ja.flash_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                for x in (q, k, v)), jnp.asarray(mask))
+    tout = ta.flash_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                                for x in (q, k, v)), torch.from_numpy(mask))
+    return (np.asarray(jout.astype(jnp.float32)),
+            tout.float().numpy())
+
+
+@pytest.mark.parametrize("form", ["normal", "q0", "k0"])
+def test_infer_attention_matches_pallas_at_the_teacher_shape(form):
+    """K5's plain version against the JAX kernel at head_dim 32, L=256
+    (the MiniLM-L6 teacher's K5), bf16, with a pair's prefix mask, an
+    all-masked row and a mask with holes: within one bf16 ulp of the
+    largest magnitude on normal data (both round probs and out to bf16
+    after fp32 sums taken in other orders), EQUAL on exact inputs."""
+    rng = np.random.default_rng(32)
+    mask = _pair_masks(rng, 3, 256)
+    qkv = _teacher_qkv(rng) if form == "normal" else _exact_qkv(form)
+    jout, tout = _k5_pair(*qkv, mask)
+    assert np.abs(jout).max() > 0
+    if form == "normal":
+        top = max(np.abs(jout).max(), np.abs(tout).max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert np.abs(tout - jout).max() <= ulp
+    else:
+        np.testing.assert_array_equal(tout, jout)
+    # the all-masked row is the mean of v over all 256 keys
+    np.testing.assert_allclose(
+        tout[1], np.broadcast_to(
+            np.asarray(torch.from_numpy(qkv[2][1]).to(torch.bfloat16)
+                       .float().mean(0)), tout[1].shape), atol=2e-2)
+
+
+def test_masked_keys_carry_no_weight_in_either_package():
+    """Large finite garbage in the K and V rows of masked keys leaves every
+    row with a real key EQUAL in both packages (a masked key's weight is
+    exactly 0: what lets the head_dim-32 kernel skip padded key tiles),
+    and changes the all-masked row (1/L over every key)."""
+    rng = np.random.default_rng(7)
+    mask = _pair_masks(rng, 3, 256)
+    q, k, v = _teacher_qkv(rng)
+    masked = (mask == 0)[:, :, None, None]
+    junk = lambda: rng.uniform(-3e4, 3e4, k.shape).astype(  # noqa: E731
+        np.float32)
+    kg, vg = np.where(masked, junk(), k), np.where(masked, junk(), v)
+    clean, dirty = _k5_pair(q, k, v, mask), _k5_pair(q, kg, vg, mask)
+    for before, after in zip(clean, dirty):
+        assert np.isfinite(after).all()
+        np.testing.assert_array_equal(after[[0, 2]], before[[0, 2]])
+        assert not np.array_equal(after[1], before[1])

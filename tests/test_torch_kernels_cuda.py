@@ -817,13 +817,31 @@ def _pair_mask(dev, b, length, g):
     return (torch.arange(length, device=dev)[None] < n).int()
 
 
+def _exact_forms(dev, shape, form):
+    """q, k, v on which every score of a row is equal (q = 0 and k
+    one-hot, or q one-hot and every key e_0) and v is one-hot over dims
+    by key position: each probability is 1/l rounded once."""
+    length, d = shape[1], shape[3]
+    pos = torch.arange(length, device=dev)
+    hot = (pos[:, None] % d == torch.arange(d, device=dev)[None, :])
+    hot = hot[None, :, None, :].expand(shape).to(torch.bfloat16).contiguous()
+    zero = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    if form == "q0":
+        return zero, hot, hot
+    e0 = zero.clone()
+    e0[..., 0] = 1
+    return hot, e0, hot
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["d32", "tiled"])
 @pytest.mark.parametrize("form", ["normal", "q0", "k0"])
-def test_infer_tiled_route_at_the_teacher_shape(form):
+def test_infer_tiled_route_at_the_teacher_shape(form, route):
     """The MiniLM teacher's K5 launches (bf16, B=128, L=256, H=12, D=32,
-    pair padding) take attention.cu's tiled forward: within 2e-2 of the
-    plain version on normal data; EQUAL to it on exact inputs (every
-    score of a row equal, v one-hot over keys)."""
+    pair padding) take attention_infer_d32.cu; attention.cu's tiled
+    forward, which they took before, stays held when forced. Both within
+    2e-2 of the plain version on normal data and EQUAL to it on exact
+    inputs."""
     dev = _device()
     b, length, h, d = 128, 256, 12, 32
     g = torch.Generator(device=dev).manual_seed(32)
@@ -833,28 +851,129 @@ def test_infer_tiled_route_at_the_teacher_shape(form):
         q, k, v = (torch.randn(shape, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
     else:
-        pos = torch.arange(length, device=dev)
-        v = (pos[:, None] % d == torch.arange(d, device=dev)[None, :])
-        v = v[None, :, None, :].expand(shape).to(torch.bfloat16).contiguous()
-        zero = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        if form == "q0":
-            q, k = zero, v
-        else:
-            q, k = v, zero.clone()
-            k[..., 0] = 1
-    assert att._kernel_route(torch.bfloat16, length, d, "infer") == "tiled"
-    key = ("infer", "attn_fwd_launch")
-    before = att.ENTRY_LAUNCHES["attn_fwd_launch"], att.ROUTE_LAUNCHES[key]
-    out = att.flash_attention(q, k, v, mask)
+        q, k, v = _exact_forms(dev, shape, form)
+    assert att._kernel_route(torch.bfloat16, length, d, "infer") == "d32"
+    entry = "attn_fwd_launch" if route == "tiled" else "attn_infer_d32_launch"
+    saved = att._kernel_route
+    if route == "tiled":
+        att._kernel_route = lambda *a: "tiled"
+    before = dict(att.ROUTE_LAUNCHES)
+    try:
+        out = att.flash_attention(q, k, v, mask)
+    finally:
+        att._kernel_route = saved
     ref = att.attention_plain(q, k, v, mask)
     torch.cuda.synchronize()
-    assert (att.ENTRY_LAUNCHES["attn_fwd_launch"],
-            att.ROUTE_LAUNCHES[key]) == (before[0] + 1, before[1] + 1)
+    for key, count in att.ROUTE_LAUNCHES.items():
+        assert count == before[key] + (key == ("infer", entry))
     assert ref.abs().max() > 0
     if form == "normal":
         assert _rel(out, ref) <= 2e-2
     else:
         assert torch.equal(out, ref)
+
+
+def _d32_mask(dev, b, length, g, kind):
+    """K5 masks at head_dim 32: "pairs", a prefix of 1..L real keys a row
+    and row 1 with none; "holes", scattered real keys (values 1, 2, -1:
+    the test is != 0) with whole 16-key tiles empty and the last of two
+    or more rows with none; "none", no real key in any row (the reference
+    gives 1/L over every key)."""
+    if kind == "pairs":
+        n = torch.randint(1, length + 1, (b, 1), generator=g, device=dev)
+        mask = (torch.arange(length, device=dev)[None] < n).int()
+        mask[1:2] = 0
+    elif kind == "holes":
+        val = torch.tensor([1, 2, -1], dtype=torch.int32, device=dev)
+        pick = torch.randint(0, 3, (b, length), generator=g, device=dev)
+        keep = torch.rand(b, length, generator=g, device=dev) < 0.15
+        tile = torch.arange(length, device=dev) // 16
+        keep &= (tile % 3 != 1)[None]
+        mask = torch.where(keep, val[pick], torch.zeros_like(pick).int())
+        if b > 1:
+            mask[-1] = 0
+    else:
+        mask = torch.zeros(b, length, dtype=torch.int32, device=dev)
+    return mask.int()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pairs", "holes", "none"])
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("length", [1, 17, 64, 100, 255, 256])
+def test_infer_d32_equals_plain(length, b, kind):
+    """bf16 K5 at head_dim 32 and L <= 256 takes attention_infer_d32.cu:
+    within 2e-2 of the largest magnitude of the plain version on normal
+    data (one bf16 ulp of a probability near 1), EQUAL to it on exact
+    inputs, with all-masked rows and masks with holes."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(length * 7 + b)
+    shape = (b, length, 12, 32)
+    mask = _d32_mask(dev, b, length, g, kind)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = att.ENTRY_LAUNCHES["attn_infer_d32_launch"]
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    exact = [(att.flash_attention(*x, mask), att.attention_plain(*x, mask))
+             for x in (_exact_forms(dev, shape, f) for f in ("q0", "k0"))]
+    torch.cuda.synchronize()
+    assert att.ENTRY_LAUNCHES["attn_infer_d32_launch"] == before + 3
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, ref) <= 2e-2
+    for got, want in exact:
+        assert want.abs().max() > 0
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [17, 100, 256])
+def test_infer_d32_ignores_masked_key_rows(length):
+    """Large finite garbage in the K and V rows of masked keys leaves every
+    row with a real key EQUAL (its padded key tiles are skipped, its other
+    masked keys weigh exactly 0); an all-masked row takes the garbage, as
+    the plain version does."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(length)
+    shape = (64, length, 12, 32)
+    mask = _d32_mask(dev, 64, length, g, "holes")
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    masked = (mask == 0)[:, :, None, None]
+    kg, vg = (torch.where(masked, (torch.rand(shape, generator=g, device=dev)
+                                   - 0.5).mul(6e4).to(torch.bfloat16), x)
+              for x in (k, v))
+    out = att.flash_attention(q, k, v, mask)
+    out_g = att.flash_attention(q, kg, vg, mask)
+    ref_g = att.attention_plain(q, kg, vg, mask)
+    torch.cuda.synchronize()
+    real = (mask != 0).any(1)
+    assert real.any() and not real.all()
+    assert torch.equal(out_g[real], out[real])
+    assert _rel(out_g, ref_g) <= 2e-2
+    assert not torch.equal(out_g[~real], out[~real])
+
+
+@pytest.mark.cuda
+def test_infer_d32_is_deterministic_and_checks_alignment():
+    """Ten launches at the teacher's shape give the same bits; an operand
+    off a 16-byte boundary raises before any launch."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(10)
+    shape = (128, 256, 12, 32)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = _pair_mask(dev, 128, 256, g)
+    first = att.flash_attention(q, k, v, mask)
+    for _ in range(9):
+        assert torch.equal(att.flash_attention(q, k, v, mask), first)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = flat[1:].view(shape)
+    off.copy_(q)
+    before = att.ENTRY_LAUNCHES["attn_infer_d32_launch"]
+    with pytest.raises(ValueError, match="aligned"):
+        att.flash_attention(off, k, v, mask)
+    assert att.ENTRY_LAUNCHES["attn_infer_d32_launch"] == before
 
 
 @pytest.mark.cuda
@@ -885,7 +1004,7 @@ def test_route_launches_tell_k3_from_k5_on_a_shared_forward():
     (torch.bfloat16, 256, 64, "attn_fwd_sm90_launch"),
     (torch.bfloat16, 257, 64, "attn_fwd_launch"),
     (torch.float32, 30, 64, "attn_fwd_launch"),
-    (torch.bfloat16, 30, 32, "attn_fwd_launch"),
+    (torch.bfloat16, 30, 32, "attn_infer_d32_launch"),
 ])
 def test_infer_route_boundary_by_launch_name(dtype, length, d, entry):
     """K5 launches go through the C entry point _kernel_route names."""

@@ -8,7 +8,7 @@ passages), a MiniLM-L6 cross-encoder with random weights from the seed
 (``chip_smoke._write_teacher``, an HF ``BertForSequenceClassification``
 state_dict), and scores 256 (query, passage) pairs, the first three
 queries each with their relevant passage and random others, in two
-batches of 128 at L=256, bf16, through K5 (attention.cu's tiled forward,
+batches of 128 at L=256, bf16, through K5 (attention_infer_d32.cu,
 five launches a batch). Then ``chip_smoke._teacher_sample_errors`` holds
 them to the same model with the plain attention, and reads the plain
 attention with the mask ignored (a deliberately wrong attention): each
@@ -88,7 +88,7 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     work = os.path.join(cs.WORK, "teacher_seeds")
-    key = ("infer", "attn_fwd_launch")
+    key = ("infer", "attn_infer_d32_launch")
     rows = []
     for seed in args.seeds:
         shutil.rmtree(work, ignore_errors=True)
@@ -100,7 +100,7 @@ def main(argv=None) -> int:
         sample = _sample(work, seed, model)
         launches = att.ROUTE_LAUNCHES[key] - before
         if launches != (cs.TEACHER_LAYERS - 1) * len(sample):
-            raise AssertionError(f"seed {seed}: {launches} tiled K5 "
+            raise AssertionError(f"seed {seed}: {launches} head_dim-32 K5 "
                                  f"launches for {len(sample)} batches")
         dev = next(model.parameters()).device
         worst, wrong, want = cs._teacher_sample_errors(model, sample, dev)
@@ -115,7 +115,7 @@ def main(argv=None) -> int:
             mask_ignored_err_of_spread=wrong,
             kernel_err_of_largest=float(np.abs(got - want).max()) / top,
             plain_min=float(want.min()), plain_max=float(want.max()),
-            tiled_launches=launches))
+            k5_launches=launches))
         print(json.dumps(rows[-1]), flush=True)
         del model
         torch.cuda.empty_cache()
