@@ -62,7 +62,13 @@ Phases (each raises on any failure; the script then exits non-zero):
    forms) with pair padding, with one all-masked batch row and with a
    mask that has holes; timed beside attention.cu's tiled forward forced
    on the same inputs (its earlier route), the plain version, its
-   bound and SDPA, with the blocks an SM holds.
+   bound and SDPA, with the blocks an SM holds. K5 at every shape of
+   the length buckets' ladder (passages at batch 512, L 256: 4096x32,
+   2048x64 on attention_infer.cu, 1024x128, 512x256 on the sm90
+   forward; the teacher at batch 128: 1024x32 to 128x256 on
+   attention_infer_d32.cu), with a bucket's padding, one row and the
+   last eighth of the batch all masked: within 2e-2 of its plain
+   version, EQUAL on exact inputs, timed beside its bound and SDPA.
    Every time in the kernels line is a device time: the summed
    durations of the kernels one call launches
    (torch.profiler; a trace whose kernel counts show lost records is
@@ -84,17 +90,34 @@ Phases (each raises on any failure; the script then exits non-zero):
    tokenizer, 32,768 synthetic passages and label-mode 8/9/10 training
    files: cli.curriculum runs three iterations (bz 8, nway 30, Lq 30,
    Lp 256, bf16, dropout 0.1, lambda_mrr, separate towers, flat layout,
-   4 steps each), cli.train runs 8 steps with --pack-passages, and a
-   resume from its step-4 checkpoint must reproduce step 5's loss. Every
+   4 steps each; after each iteration its evaluation hook builds a
+   length-bucketed index of the 32,768 passages on the card, K5
+   through the kernels, and retrieves the 1,024 queries at k=100 (K1):
+   three builds, none alive after its iteration, three finite rows of
+   curriculum_eval.tsv), cli.train runs 8 steps with --pack-passages,
+   and a resume from its step-4 checkpoint must reproduce step 5's
+   loss. Every
    loss and grad norm must be finite; K3 must launch in every
    non-final block of both towers at every step, each K3/K4 launch
    through attention_sm90.cu. Prints ms per step and
    examples/s, flat and packed.
 5. pipeline: the CLIs index -> retrieve -> evaluate with the trained
    checkpoint over the train phase's 32,768 passages at --max-length 256
-   and 1,024 queries at 30; the retrieves encode queries with
+   and 1,024 queries at 30; the index and retrieve calls encode with
    --attention-impl pallas (K5); the index call also builds an IVF
-   companion (--ivf-nlist 16).
+   companion (--ivf-nlist 16). Then cli.index --bucket-lengths with
+   live tokenization, and with --token-cache twice (the first call
+   writes the cache, the second reads it): passages/s of each beside
+   the flat call's; each store holds the flat store's ids with rows
+   within BUCKET_EMB_TOL of its rows' spread (the encoder with the mask
+   ignored must miss it), the cache's two stores EQUAL; retrieve and
+   evaluate through the bucketed store. build_index_on_device from the
+   cache (bf16 and int8, flat and bucketed) must EQUAL FlatIPIndex.build
+   over encode_dataset of the same batches (rows, scales, ids, k=100
+   searches), and reconstruct the CLI's flat store rounded to bf16 or
+   quantized. range_search over a 1,048,576 x 768 int8 store at two
+   depths (K1 at k=1024 and 2048) must EQUAL an exact oracle. Every TSV
+   and JSONL parse of the path must take the native parsers.
 6. teacher: a MiniLM-L6 cross-encoder (BertConfig.minilm_l6: 6 x 384,
    12 heads) with random weights from --seed, written as an HF
    BertForSequenceClassification state_dict. cli.retrieve_queries encodes
@@ -110,7 +133,10 @@ Phases (each raises on any failure; the script then exits non-zero):
    traced (torch.profiler) and its device time split by kernel class
    beside its wall time. cli.rerank_eval runs --mode cross with the
    teacher and --mode dual with the trained checkpoint over the same
-   candidates; cli.export writes both formats,
+   candidates. create_training_data and rerank_eval run again with
+   --bucket-lengths: the same pairs, the sample within the same
+   tolerance, K5 launches counted by bucket shape, pairs/s beside the
+   flat run's. cli.export writes both formats,
    and each indexes 4,096 passages EQUAL to the trained checkpoint.
    Prints the teacher's pairs/s and the phase's seconds.
 7. serve: a clustered 1,048,576 x 768 int8 store (from --seed, with a
@@ -141,10 +167,11 @@ read just after it: a kernel its path must reach with no launch there
 fails the run, every K1 and K2 launch of a window must have gone through
 the Hopper entry points (extract_topk_sm90_launch,
 fused_binmax_sm90_launch), and every K5 launch through those its path
-names (K5_ENTRIES: attn_infer_short_launch, and on the teacher and serve
-paths the sm90 forward and attn_infer_d32_launch too); the kernels line
-sums the five
-windows. The serve phase checks
+names (K5_ENTRIES: attn_infer_short_launch and the sm90 forward on the
+train and pipeline paths, attn_infer_d32_launch too on the teacher and
+serve paths); K5 is also counted by (entry point, B, L)
+(ops/attention.py::SHAPE_LAUNCHES). The kernels line sums the five
+windows, K5's launches by shape included. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
 start-up and the requests they answer), counted the same way.
@@ -163,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -173,6 +201,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import torch
@@ -223,6 +252,22 @@ TEACHER_SAMPLE = 256   # pairs held to the plain attention
 # (tools/teacher_check_seeds.py)
 TEACHER_SAMPLE_TOL = 0.2
 N_EXPORT = 4096        # passages the export round trip indexes
+# K5 at the length buckets' shapes (data/bucketing.py's default ladder,
+# token-balanced): passages at --batch-size 512, --max-length 256 (head_dim
+# 64) and the teacher at B=128, L=256 (head_dim 32); (B, L, H, D)
+LADDER_SHAPES = ([(512 * 256 // n, n, HEADS, HEAD_DIM)
+                  for n in (32, 64, 128, 256)]
+                 + [(TEACHER_BATCH * TEACHER_L // n, n, TEACHER_HEADS,
+                     TEACHER_HEAD_DIM) for n in (32, 64, 128, 256)])
+# a bucketed store's rows' largest distance from the flat store's, over
+# the rows' spread (_row_dist; bf16, other kernels and batch shapes at
+# another padded length: the same bits need not come out, though on an
+# H100 they did), which the encoder with the mask ignored (~10) misses
+BUCKET_EMB_TOL = 0.05
+BUCKET_SAMPLE = 256    # passages encoded with the mask ignored
+RANGE_K_START = 1024   # range_search's first depth (two depths forced)
+N_ONDEVICE_FLAT = 8192  # passages of the flat on-device builds (cut from
+#                         32,768: every row pays L=256 there)
 RERANK_K, RERANK_TOP = 100, 10  # the rerank daemon's requests
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -646,6 +691,7 @@ def phase_kernels(ctx):
     torch.cuda.empty_cache()
     _teacher_attention(ctx)
     torch.cuda.empty_cache()
+    _ladder_checks(ctx)
 
     # K1 and K2 held to their plain versions and timed at B=512, N=1M bf16
     # (K1 at the bf16 store's shape; K2 at the shape of its earlier rows)
@@ -1351,6 +1397,85 @@ def _teacher_attention(ctx):
     del q, k, v, mask, amask, qt, kt, vt
 
 
+def _ladder_mask(ctx, b, length):
+    """Keys padded as one length bucket's rows are: each row's real
+    tokens past the next shorter bucket (a bucket holds the rows longer
+    than the one below it), one row with no real key, and the last
+    eighth of the batch all padding (a bucket's partial last batch)."""
+    n = torch.randint(length // 2 + 1, length + 1, (b, 1),
+                      generator=ctx["gen"], device=ctx["dev"])
+    mask = (torch.arange(length, device=ctx["dev"])[None] < n).int()
+    mask[1] = 0
+    mask[b - b // 8:] = 0
+    return mask
+
+
+def _ladder_checks(ctx):
+    """K5 at every shape of the length buckets' ladder (LADDER_SHAPES),
+    through the route _kernel_route gives each (short, sm90, d32), with a
+    bucket's padding (_ladder_mask): within 2e-2 of the largest magnitude
+    of attention_plain on normal data, EQUAL to it on the exact forms;
+    timed beside the plain version, its bound (real keys only) and
+    SDPA."""
+    import torch.nn.functional as F
+
+    from cldrd_tpu_torch.ops import attention as att
+
+    dev, bf16 = ctx["dev"], torch.bfloat16
+    names = {"short": "attention_infer", "sm90": "attention_infer_sm90",
+             "d32": "attention_infer_d32"}
+    for b, length, h, d in LADDER_SHAPES:
+        route = att._kernel_route(bf16, length, d, "infer")
+        shape = (b, length, h, d)
+        mask = _ladder_mask(ctx, b, length)
+        q, k, v = (torch.randn(shape, generator=ctx["gen"], device=dev)
+                   .to(bf16) for _ in range(3))
+        ref = att.attention_plain(q, k, v, mask)
+        err = (att.flash_attention(q, k, v, mask).float()
+               - ref.float()).abs().max().item()
+        if not err <= 2e-2 * ref.float().abs().max().item():
+            raise AssertionError(f"K5 {route} bucket B={b} L={length} "
+                                 f"D={d}: max abs err {err:.3g}")
+        del ref
+        for form, xs in _exact_forms(dev, shape).items():
+            got = att.flash_attention(*xs, mask)
+            want = att.attention_plain(*xs, mask)
+            if not (want.abs().max() > 0 and torch.equal(got, want)):
+                raise AssertionError(
+                    f"K5 {route} bucket B={b} L={length} D={d} exact "
+                    f"({form}): {int((got != want).sum())} elements differ "
+                    "from the plain version")
+            del got, want
+        amask = (mask != 0)[:, None, None, :]
+        # SDPA's rows with no key give NaN: let them attend to key 0
+        amask[(mask == 0).all(1), :, :, 0] = True
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        keys = int(mask.sum())
+        nbytes, ops = _attn_bytes_ops(b, length, bf16, 4, 2, heads=h,
+                                      head_dim=d, keys=keys)
+        row = dict(
+            ms=device_ms(lambda: att.flash_attention(q, k, v, mask)),
+            plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
+                               reps=3, warmup=1),
+            bound=bound_ms(nbytes, ops, "bf16"),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask)),
+            route=route, real_keys=keys, B=b, L=length, H=h, D=d)
+        ctx.setdefault("timings", {}).setdefault(names[route], {})[
+            f"bucket_{b}x{length}"] = row
+        key = "k5_teacher_err" if route == "d32" else "k5_err"
+        ctx[key] = max(ctx.get(key, 0.0), err)
+        log(f"[kernels] K5 {route} at the bucket shape B={b} L={length} "
+            f"H={h} D={d} bf16 (a bucket's padding, one row and the last "
+            f"eighth all masked): max abs err {err:.3g} (tolerance 2e-2 "
+            "of the largest magnitude), EQUAL on exact inputs (two forms); "
+            f"device ms: kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}"
+            f", scaled_dot_product_attention {row['library_ms']:.4f}, bound "
+            f"{row['bound'][0]:.4f} ({row['bound'][1]}; {keys} real keys)")
+        del q, k, v, mask, amask, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
 def _oracle(index, q_np, k):
     """Exact top-k by full matmul + one stable descending sort over row
     positions (equal scores keep the lower position): the same two keys
@@ -1816,14 +1941,40 @@ def phase_train(ctx):
     common = ["--config", base, "--tokenizer", "hash", "--device", "cuda",
               "--dropout", "0.1", "--attention-dropout", "0.1",
               "--batch-size", str(TRAIN_BZ), "--run-folder", runs]
+    # the per-iteration evaluation builds its index on the card: record
+    # each build's time and a weak reference to it (none may outlive its
+    # iteration)
+    from cldrd_tpu_torch import index as index_lib
+
+    build_on_device, builds = index_lib.build_index_on_device, []
+
+    def tracked(*a, **kw):
+        gc.collect()
+        if any(ref() is not None for ref, _ in builds):
+            raise AssertionError("an earlier iteration's evaluation index "
+                                 "is still allocated")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = build_on_device(*a, **kw)
+        torch.cuda.synchronize()
+        builds.append((weakref.ref(index), time.perf_counter() - t0))
+        return index
+
+    index_lib.build_index_on_device = tracked
     try:
         before = att.LAUNCHES["train_fwd"]
-        entries = dict(att.ENTRY_LAUNCHES)
+        routes = dict(att.ROUTE_LAUNCHES)
         _, t_cur = _call_cli(cli_curriculum.main, [
             "--queries", ctx["corpus"]["queries"],
             "--passages", ctx["corpus"]["collection"],
             "--training-paths", files["8"], files["9"], files["10"],
-            "--epochs", "1", "1", "1", *common])
+            "--epochs", "1", "1", "1", "--attention-impl", "pallas",
+            "--eval-queries", ctx["corpus"]["queries"],
+            "--eval-qrels", ctx["corpus"]["qrels"],
+            "--eval-batch-size", str(SEARCH_BATCH),
+            # k=100 over the 32,768 rows takes the extract route (K1)
+            "--eval-topk", str(K_PIPELINE_EXTRACT),
+            "--eval-bucket-lengths", *common])
         flat_steps = 3 * TRAIN_EXAMPLES // TRAIN_BZ
         k3_flat = att.LAUNCHES["train_fwd"] - before
         # every block but the cls_only last one, in both towers
@@ -1832,8 +1983,11 @@ def phase_train(ctx):
                                  f"flat steps ({2 * (N_LAYERS - 1)} a step "
                                  "expected)")
         # every train-attention launch of the path takes the sm90 kernels
-        sm90 = {e: att.ENTRY_LAUNCHES[e] - entries[e]
-                for e in ("attn_fwd_sm90_launch", "attn_bwd_sm90_launch")}
+        # (the evaluation's K5 launches share the sm90 forward's entry
+        # point: count by route)
+        sm90 = {e: att.ROUTE_LAUNCHES[key] - routes[key] for e, key in (
+            ("attn_fwd_sm90_launch", ("train_fwd", "attn_fwd_sm90_launch")),
+            ("attn_bwd_sm90_launch", ("train_bwd", "attn_bwd_sm90_launch")))}
         if set(sm90.values()) != {k3_flat}:
             raise AssertionError(f"{sm90} of {k3_flat} flat K3/K4 launches "
                                  "took the sm90 kernels")
@@ -1851,6 +2005,17 @@ def phase_train(ctx):
                          f"checkpoint_{RESUME_STEP}.pth.tar")])
     finally:
         Trainer._check_finite = check
+        index_lib.build_index_on_device = build_on_device
+    gc.collect()
+    if len(builds) != 3 or any(ref() is not None for ref, _ in builds):
+        raise AssertionError(f"{len(builds)} evaluation index builds, or "
+                             "one still allocated after the curriculum")
+    with open(os.path.join(runs, "curriculum_eval.tsv")) as f:
+        table = [line.rstrip("\n").split("\t") for line in f]
+    evals = [dict(zip(table[0], map(float, row))) for row in table[1:]]
+    if len(evals) != 3 or not all(np.isfinite(list(e.values())).all()
+                                  for e in evals):
+        raise AssertionError(f"curriculum_eval.tsv: {table}")
     bad = [r for r in records
            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]))]
     if bad or not records:
@@ -1870,6 +2035,9 @@ def phase_train(ctx):
     packed = _step_times(records, ["packed", "resumed"],
                          saved={("packed", RESUME_STEP)})
     res = {"curriculum_s": t_cur, "packed_s": t_pack, "resume_s": t_res,
+           "eval_build_s": [t for _, t in builds],
+           "eval_build_passages_per_s": [N_PIPELINE / t for _, t in builds],
+           "eval_mrr10": [e["MRR@10"] for e in evals],
            "flat_step_ms": float(np.median(flat)) * 1e3,
            "packed_step_ms": float(np.median(packed)) * 1e3,
            "flat_steps_ms": [x * 1e3 for x in flat],
@@ -1901,6 +2069,15 @@ def phase_train(ctx):
         f"{RESUME_STEP}: {t_res:.1f} s, step {nxt} loss {resumed!r} "
         f"{'EQUAL to' if resumed == straight else 'within 1e-6 of'} the "
         f"uninterrupted run's {straight!r}")
+    log(f"[train] the per-iteration evaluation (--eval-bucket-lengths, "
+        f"the default ladder, batch {SEARCH_BATCH}): 3 on-card index builds "
+        f"of {N_PIPELINE} passages in "
+        + ", ".join(f"{t:.2f}" for t in res["eval_build_s"])
+        + " s (" + ", ".join(f"{r:.1f}" for r in
+                             res["eval_build_passages_per_s"])
+        + " passages/s, host tokenization included), each freed before "
+        "the next iteration; MRR@10 " + ", ".join(
+            f"{m:.4f}" for m in res["eval_mrr10"]))
     log(f"[train] step: flat {res['flat_step_ms']:.1f} ms "
         f"({res['flat_examples_per_s']:.1f} examples/s), packed "
         f"{res['packed_step_ms']:.1f} ms ({res['packed_examples_per_s']:.1f} "
@@ -1919,11 +2096,17 @@ def phase_pipeline(ctx):
     paths = ctx["corpus"]
     ckpt = ctx["trained_ckpt"]  # the curriculum's last checkpoint
     common = ["--checkpoint", ckpt, "--tokenizer", "hash", "--device", "cuda"]
+    from cldrd_tpu_torch import native
+    from cldrd_tpu_torch.data import loaders
+
+    for name in ("_tsvparse", "_jsonlparse"):
+        native.load(name)  # raises if a parser does not build
+    parses = dict(loaders.PARSES)
     idx = os.path.join(work, "index")
     lines, t_index = _call_cli(cli_index.main, [
         "--collection", paths["collection"], "--out", idx,
         "--max-length", str(TRAIN_LP), "--batch-size", "512",
-        "--ivf-nlist", "16", *common])
+        "--attention-impl", "pallas", "--ivf-nlist", "16", *common])
     enc = json.loads(lines[-1])
     from cldrd_tpu_torch.index import IVFIndex
 
@@ -1967,7 +2150,326 @@ def phase_pipeline(ctx):
             f"Recall@1000={metrics['Recall@1000']:.4f}")
     if results[f"bfloat16_k{K_PIPELINE_EXTRACT}"]["extract_topk_launches"] <= 0:
         raise AssertionError("pipeline retrieve launched no extract_topk")
+    results["buckets"] = _pipeline_buckets(ctx, work, idx, common, results)
+    results["on_device"] = _on_device_builds(ctx, work, idx)
+    results["range_search"] = _range_search_check(ctx)
+    used = {k: loaders.PARSES[k] - parses[k] for k in parses}
+    if used["python"] or not used["native"]:
+        raise AssertionError(f"the pipeline's parses: {used} (native "
+                             "parsers not in use)")
+    results["parses"] = used
+    log(f"[pipeline] every TSV/JSONL parse of the path took the native "
+        f"parsers: {used}")
     ctx["pipeline"] = results
+
+
+def _pallas_model_config():
+    """The trained checkpoint's config (DistilBERT-base) with K5 in its
+    encodes (``attention_impl="pallas"``)."""
+    from cldrd_tpu_torch.models import DistilBertConfig
+
+    return DistilBertConfig(attention_impl="pallas")
+
+
+def _row_dist(a, b):
+    """The largest per-row ||a - b|| (rows aligned by id) over the rows'
+    spread about their mean in ``b`` (the root mean square of
+    ||b - mean(b)||): the rows of a trained tower share one direction, so
+    their norms would hide how far a row moved among the others."""
+    spread = np.sqrt(((b - b.mean(0)) ** 2).sum(1).mean())
+    return float(np.linalg.norm(a - b, axis=1).max() / spread)
+
+
+def _mask_ignored_dist(ctx, texts):
+    """The same distance for an encoder that ignores the attention mask
+    (the plain attention over every key): ``texts`` encoded at their
+    length buckets' widths against the same at the flat width. A port
+    that let padding into attention would read this, not ~1e-2."""
+    from cldrd_tpu_torch.cli.common import build_tokenizer, load_dual_encoder
+    from cldrd_tpu_torch.data.bucketing import (
+        default_bucket_lengths,
+        required_lengths,
+    )
+    from cldrd_tpu_torch.index.builder import make_encode_fn
+
+    cfg = _pallas_model_config()
+    model = load_dual_encoder(ctx["trained_ckpt"], cfg, False, False,
+                              torch.bfloat16, ctx["dev"])
+    encode = make_encode_fn(model, "passage_embs")
+    tok = build_tokenizer("hash", vocab_size=cfg.vocab_size)(texts, TRAIN_LP)
+    ladder = np.asarray(default_bucket_lengths(TRAIN_LP))
+    widths = ladder[np.searchsorted(ladder,
+                                    required_lengths(tok["attention_mask"]))]
+    with _plain_attention(ignore_mask=True):
+        flat = encode(tok).cpu().numpy()
+        bucketed = np.empty_like(flat)
+        for w in np.unique(widths):
+            rows = np.flatnonzero(widths == w)
+            bucketed[rows] = encode({k: v[rows, :w] for k, v in
+                                     tok.items()}).cpu().numpy()
+    del model
+    return _row_dist(bucketed, flat)
+
+
+def _pipeline_buckets(ctx, work, flat_idx, common, results):
+    """cli.index --bucket-lengths (the default ladder) with live
+    tokenization, then with --token-cache twice (the first call writes
+    the cache, the second reads it): passages/s of each beside the flat
+    store's; the same id set as the flat store and per-row embeddings
+    within BUCKET_EMB_TOL of it (the mask ignored must miss it); the
+    cache's two stores EQUAL; retrieve + evaluate over the bucketed
+    store, MRR@10 beside the flat store's."""
+    from cldrd_tpu_torch.cli import evaluate as cli_evaluate
+    from cldrd_tpu_torch.cli import index as cli_index
+    from cldrd_tpu_torch.cli import retrieve as cli_retrieve
+    from cldrd_tpu_torch.data import load_passages
+    from cldrd_tpu_torch.index.persistence import read_embeddings
+
+    paths = ctx["corpus"]
+    cache = os.path.join(work, "token_cache")
+    base = ["--collection", paths["collection"], "--max-length", str(TRAIN_LP),
+            "--batch-size", "512", "--attention-impl", "pallas",
+            "--bucket-lengths", *common]
+    runs = {}
+    for name, extra in (("bucketed", []),
+                        ("cache_write", ["--token-cache", cache]),
+                        ("cache_read", ["--token-cache", cache])):
+        out = os.path.join(work, f"index_{name}")
+        lines, t = _call_cli(cli_index.main, [*base, "--out", out, *extra])
+        runs[name] = dict(_last_json(lines), seconds=t, out=out)
+    if ("token_cache_write_s" not in runs["cache_write"]
+            or "token_cache_write_s" in runs["cache_read"]):
+        raise AssertionError("the token cache was not written once and "
+                             "read once")
+    flat_e, flat_ids = read_embeddings(flat_idx)
+    order = np.argsort(flat_ids)
+    stores, dists = {}, {}
+    for name, r in runs.items():
+        e, ids = read_embeddings(r.pop("out"))
+        o = np.argsort(ids)
+        if not np.array_equal(ids[o], flat_ids[order]):
+            raise AssertionError(f"the {name} store's ids differ from the "
+                                 "flat store's")
+        if np.array_equal(ids, flat_ids):
+            raise AssertionError(f"the {name} store's rows are in the flat "
+                                 "order (no buckets)")
+        stores[name] = e[o]
+        dists[name] = _row_dist(e[o], flat_e[order])
+    if not np.array_equal(stores["cache_read"], stores["cache_write"]):
+        raise AssertionError("two encodes of the cache differ")
+    passages = load_passages(paths["collection"])
+    wrong = _mask_ignored_dist(ctx, [passages[int(i)] for i in
+                                     flat_ids[order][:BUCKET_SAMPLE]])
+    if not max(dists.values()) <= BUCKET_EMB_TOL < wrong:
+        raise AssertionError(f"bucketed stores' distance from the flat "
+                             f"store {dists}, mask ignored {wrong:.3g} "
+                             f"(tolerance {BUCKET_EMB_TOL})")
+    run = os.path.join(work, "run_bucketed.tsv")
+    lines, _ = _call_cli(cli_retrieve.main, [
+        "--index", os.path.join(work, "index_cache_read"), "--queries",
+        paths["queries"], "--run", run, "--topk", str(K), "--max-length",
+        str(TRAIN_LQ), "--search-batch-size", str(SEARCH_BATCH),
+        "--hbm-dtype", "bfloat16", "--attention-impl", "pallas", *common])
+    _check_run_file(run, N_QUERIES, K, N_PIPELINE)
+    metrics = json.loads("\n".join(_call_cli(cli_evaluate.main, [
+        "--qrels", paths["qrels"], "--run", run])[0]))
+    n = N_PIPELINE
+    res = {"runs": runs, "row_dist": dists, "mask_ignored_dist": wrong,
+           "mrr10": metrics["MRR@10"],
+           "cache_write_passages_per_s":
+               n / runs["cache_write"]["token_cache_write_s"]}
+    log(f"[pipeline] encode passages/s ({n} passages, batch 512 at L="
+        f"{TRAIN_LP}, --attention-impl pallas): flat "
+        f"{results['passages_per_s']:.1f}; --bucket-lengths (default "
+        f"ladder) with live tokenization "
+        f"{runs['bucketed']['passages_per_s']:.1f}; --token-cache write "
+        f"{res['cache_write_passages_per_s']:.1f} (tokenize + write, "
+        f"{runs['cache_write']['token_cache_write_s']:.2f} s), then its "
+        f"bucketed encode {runs['cache_write']['passages_per_s']:.1f}; "
+        f"cache read + buckets {runs['cache_read']['passages_per_s']:.1f} "
+        "(CLI seconds "
+        + ", ".join(f"{r['seconds']:.1f}" for r in runs.values()) + ")")
+    log(f"[pipeline] bucketed stores: the flat store's {n} ids, per-row "
+        f"distance from it {dists} (tolerance {BUCKET_EMB_TOL}; the "
+        f"encoder with the mask ignored: {wrong:.3g} over "
+        f"{BUCKET_SAMPLE} passages); the cache's two stores EQUAL; "
+        f"MRR@10 {metrics['MRR@10']:.4f} through the bucketed store, "
+        f"{results[f'bfloat16_k{K}']['mrr10']:.4f} through the flat one")
+    return res
+
+
+def _same_index(tag, got, want, n, q, k):
+    """Two stores of the same n rows: the same ids, row for row, EQUAL
+    rows (and scales), rows past n unused (id -1, finite scale), and
+    EQUAL searches."""
+    if not torch.equal(got.row_ids[:n], want.row_ids[:n]) or bool(
+            (got.row_ids[n:] >= 0).any()):
+        raise AssertionError(f"{tag}: row ids differ")
+    if not torch.equal(got.embeddings[:n], want.embeddings[:n]):
+        raise AssertionError(f"{tag}: stored rows differ")
+    if want.row_scales is not None and not (
+            torch.equal(got.row_scales[:n], want.row_scales[:n])
+            and bool(torch.isfinite(got.row_scales).all())):
+        raise AssertionError(f"{tag}: row scales differ or are not finite")
+    gv, gi = got.search(q, k)
+    wv, wi = want.search(q, k)
+    if not (np.array_equal(gi, wi) and np.array_equal(gv, wv)):
+        raise AssertionError(f"{tag}: searches differ")
+
+
+def _on_device_builds(ctx, work, flat_idx):
+    """build_index_on_device from the token cache (bf16 and int8, flat
+    and with the default ladder) against FlatIPIndex.build over
+    encode_dataset of the same batch stream: the same row ids and EQUAL
+    rows, scales and searches (k=100, 512 queries); and reconstruct on
+    the flat bf16 and int8 stores against the flat CLI store's rows
+    rounded to bf16 and quantized per row. The flat builds (every row at
+    L=256) take a cache of the first N_ONDEVICE_FLAT passages."""
+    from cldrd_tpu_torch.cli.common import build_tokenizer, load_dual_encoder
+    from cldrd_tpu_torch.data import (
+        SequenceDataset,
+        TokenCacheDataset,
+        load_passages,
+        write_token_cache,
+    )
+    from cldrd_tpu_torch.index import (
+        FlatIPIndex,
+        build_index_on_device,
+        encode_dataset,
+        make_encode_fn,
+        quantize_rows,
+    )
+    from cldrd_tpu_torch.index.persistence import read_embeddings
+
+    dev = ctx["dev"]
+    model = load_dual_encoder(ctx["trained_ckpt"], _pallas_model_config(),
+                              False, False, torch.bfloat16, dev)
+    encode = make_encode_fn(model, "passage_embs")
+    passages = load_passages(ctx["corpus"]["collection"])
+    sub = os.path.join(work, "token_cache_flat")
+    write_token_cache(SequenceDataset(
+        {pid: passages[pid] for pid in list(passages)[:N_ONDEVICE_FLAT]},
+        build_tokenizer("hash", vocab_size=model.config.vocab_size),
+        TRAIN_LP, is_query=False), sub)
+    caches = {None: TokenCacheDataset(sub),
+              (): TokenCacheDataset(os.path.join(work, "token_cache"))}
+    q = make_queries(SEARCH_BATCH, D, torch.bfloat16, dev, ctx["gen"], False)
+    disk_e, disk_ids = read_embeddings(flat_idx)
+    rows = np.arange(0, N_ONDEVICE_FLAT, N_ONDEVICE_FLAT // 64)
+    pick = disk_ids[rows]
+    if not np.array_equal(caches[None].ids, disk_ids[:N_ONDEVICE_FLAT]):
+        raise AssertionError("the flat store's first rows are not the "
+                             "sub-cache's passages")
+    res = {}
+    for ladder, ds in caches.items():
+        tag = "flat" if ladder is None else "bucketed"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs, ids = encode_dataset(encode, ds, 512, bucket_lengths=ladder)
+        t_host = time.perf_counter() - t0
+        for dtype in (torch.bfloat16, torch.int8):
+            name = f"{tag}_{str(dtype)[6:]}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = build_index_on_device(encode, ds, 512, D, dtype=dtype,
+                                          bucket_lengths=ladder, device=dev)
+            torch.cuda.synchronize()
+            t_dev = time.perf_counter() - t0
+            host = FlatIPIndex.build(embs, ids, dtype=dtype, device=dev)
+            _same_index(f"on-device build {name}", index, host, len(ids), q,
+                        K_PIPELINE_EXTRACT)
+            if ladder is None:  # the CLI's flat store, read back
+                got = index.reconstruct(pick)
+                if dtype == torch.int8:
+                    codes, sc = quantize_rows(disk_e[rows])
+                    want = codes.astype(np.float32) * sc[:, None]
+                else:
+                    want = torch.from_numpy(disk_e[rows]).to(
+                        torch.bfloat16).float().numpy()
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"reconstruct {name} differs from "
+                                         "the CLI's flat store")
+            res[name] = {"build_s": t_dev, "passages_per_s": len(ids) / t_dev,
+                         "encode_dataset_s": t_host,
+                         "rows": int(index.embeddings.shape[0])}
+            del index, host
+        del embs
+    del model
+    torch.cuda.empty_cache()
+    log("[pipeline] build_index_on_device from the token cache: the same "
+        "row ids and EQUAL rows, scales and k=100 searches as "
+        "FlatIPIndex.build over encode_dataset of the same stream; "
+        + "; ".join(f"{k} {v['build_s']:.2f} s ({v['passages_per_s']:.1f} "
+                    f"passages/s, {v['rows']} rows; encode_dataset "
+                    f"{v['encode_dataset_s']:.2f} s)" for k, v in res.items())
+        + f"; reconstruct of {len(pick)} ids EQUAL to the CLI's flat store "
+        "rounded to bf16 and quantized per row")
+    return res
+
+
+def _range_search_check(ctx):
+    """range_search over a 1,048,576 x 768 int8 store with scales, on
+    8 integer-valued queries: every dot is exact, so the hits must EQUAL
+    an exact oracle's (full matmul, strictly above the radius), sorted.
+    The radius is the largest 1,536th score of the queries, so the
+    search runs at depths RANGE_K_START and 2 x RANGE_K_START (K1 at
+    k=1024 and 2048); a max_passes of 1 must raise; reconstruct
+    dequantizes the stored codes."""
+    from cldrd_tpu_torch.index import FlatIPIndex
+
+    dev, gen = ctx["dev"], ctx["gen"]
+    st = Store(N_KERNEL, D, torch.int8, dev, gen, True)
+    index = FlatIPIndex.from_tensors(st.c, st.ids, st.scales)
+    q = make_queries(8, D, torch.bfloat16, dev, gen, True)
+    exact = (q.float() @ st.c.float().T) * st.scales[None, :]
+    # the largest (1.5 k_start)-th score: one query needs the second depth
+    rank = RANGE_K_START * 3 // 2 - 1
+    radius = float(exact.sort(dim=1, descending=True).values[:, rank].max())
+    depths, search = [], index.search
+
+    def counted(queries, k):
+        depths.append(k)
+        return search(queries, k)
+
+    index.search = counted
+    q_np = q.float().cpu().numpy()
+    t0 = time.perf_counter()
+    lims, scores, ids = index.range_search(q_np, radius,
+                                           k_start=RANGE_K_START)
+    seconds = time.perf_counter() - t0
+    depths = list(depths)  # the max_passes check below searches too
+    if depths != [RANGE_K_START, 2 * RANGE_K_START]:
+        raise AssertionError(f"range_search depths {depths}")
+    for i in range(len(q_np)):
+        keep = exact[i] > radius
+        want_v, order = exact[i][keep].sort(descending=True, stable=True)
+        want_i = st.ids[keep][order]
+        got_i, got_v = ids[lims[i]:lims[i + 1]], scores[lims[i]:lims[i + 1]]
+        if not (np.array_equal(got_v, want_v.cpu().numpy())
+                and set(got_i.tolist()) == set(want_i.cpu().tolist())):
+            raise AssertionError(f"range_search query {i}: "
+                                 f"{len(got_i)} hits, oracle {int(keep.sum())}")
+    try:
+        index.range_search(q_np, radius, k_start=RANGE_K_START, max_passes=1)
+        raise AssertionError("range_search with max_passes=1 did not raise")
+    except RuntimeError as e:
+        if "unsaturated" not in str(e):
+            raise
+    pick = np.arange(0, N_KERNEL, N_KERNEL // 64)
+    got = index.reconstruct(pick)
+    want = (st.c[torch.from_numpy(pick).to(dev)].float()
+            * st.scales[torch.from_numpy(pick).to(dev)][:, None])
+    if not np.array_equal(got, want.cpu().numpy()):
+        raise AssertionError("reconstruct of the int8 store differs")
+    hits = np.diff(lims).tolist()
+    log(f"[pipeline] range_search over {N_KERNEL} x {D} int8 + scales, 8 "
+        f"integer-valued queries, radius {radius!r}: depths {depths}, hits "
+        f"{hits} EQUAL to the exact oracle, {seconds * 1e3:.1f} ms; "
+        "max_passes=1 raises; reconstruct EQUAL to codes x scales")
+    del index, st, exact
+    torch.cuda.empty_cache()
+    return {"radius": radius, "depths": depths, "hits": hits,
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------- teacher
@@ -2134,39 +2636,50 @@ def phase_teacher(ctx):
 
     # the teacher scores them: record every batch's scores, keep the
     # first batches' inputs for the check against the plain attention
-    seen = {"scores": [], "sample": [], "batches": 0, "s": 0.0}
     make_fn = cli_ctd.make_cross_encoder_score_fn
 
-    def recording(model):
-        fn = seen["fn"] = make_fn(model)
+    def recorder(seen):
+        """A score-function factory that records every batch's scores
+        and (qid, pid) pairs in ``seen``, and the first batches' inputs
+        for the check against the plain attention."""
+        seen.update(scores=[], pairs=[], sample=[], batches=0, s=0.0)
 
-        def score(batch):
-            t0 = time.perf_counter()
-            out = fn(batch)
-            seen["s"] += time.perf_counter() - t0
-            seen["batches"] += 1
-            if seen["batches"] == 3:  # a full batch, traced below
-                seen["traced"] = batch
-            seen["scores"].append(out[:batch.n_valid])
-            if len(seen["sample"]) * TEACHER_BATCH < TEACHER_SAMPLE:
-                seen["sample"].append((batch.query_passage,
-                                       out[:batch.n_valid]))
-            return out
-        return score
+        def recording(model):
+            fn = seen["fn"] = make_fn(model)
+
+            def score(batch):
+                t0 = time.perf_counter()
+                out = fn(batch)
+                seen["s"] += time.perf_counter() - t0
+                seen["batches"] += 1
+                if seen["batches"] == 3:  # a full batch, traced below
+                    seen["traced"] = batch
+                n = batch.n_valid
+                seen["scores"].append(out[:n])
+                seen["pairs"].append(np.stack([batch.qids[:n],
+                                               batch.pids[:n]], 1))
+                if len(seen["sample"]) * TEACHER_BATCH < TEACHER_SAMPLE:
+                    seen["sample"].append((batch.query_passage, out[:n]))
+                return out
+            return score
+        return recording
+
+    seen = {}
 
     keys = {r: ("infer", f"attn_{r}_launch")
             for r in ("infer_d32", "fwd")}
     before = {r: att.ROUTE_LAUNCHES[key] for r, key in keys.items()}
-    cli_ctd.make_cross_encoder_score_fn = recording
+    ctd_argv = [
+        "--candidates-run", cands, "--queries", paths["queries"],
+        "--passages", paths["collection"], "--teacher-checkpoint",
+        teacher, "--teacher-arch", "bert", "--model-size", "full",
+        "--attention-impl", "pallas", "--compute-dtype", "bfloat16",
+        "--max-length", str(TEACHER_L), "--batch-size", str(TEACHER_BATCH),
+        *common]
+    cli_ctd.make_cross_encoder_score_fn = recorder(seen)
     try:
         lines, t_ctd = _call_cli(cli_ctd.main, [
-            "--candidates-run", cands, "--queries", paths["queries"],
-            "--passages", paths["collection"], "--teacher-checkpoint",
-            teacher, "--teacher-arch", "bert", "--model-size", "full",
-            "--attention-impl", "pallas", "--compute-dtype", "bfloat16",
-            "--max-length", str(TEACHER_L), "--batch-size",
-            str(TEACHER_BATCH), "--out-prefix", os.path.join(work, "cl_"),
-            *common])
+            *ctd_argv, "--out-prefix", os.path.join(work, "cl_")])
     finally:
         cli_ctd.make_cross_encoder_score_fn = make_fn
     d32, tiled = (att.ROUTE_LAUNCHES[keys[r]] - before[r]
@@ -2199,7 +2712,7 @@ def phase_teacher(ctx):
         raise AssertionError(f"curriculum files {sorted(stages)}")
     # the sample, scored directly with the plain attention; the same with
     # the mask ignored must miss the tolerance, or the check sees nothing
-    worst, wrong, _ = _teacher_sample_errors(
+    worst, wrong, plain = _teacher_sample_errors(
         _teacher_model(teacher, "pallas"), seen["sample"], ctx["dev"])
     if not worst <= TEACHER_SAMPLE_TOL:
         raise AssertionError(f"teacher sample: max abs err {worst:.3g} of "
@@ -2226,7 +2739,11 @@ def phase_teacher(ctx):
         f"the plain attention with the mask ignored: {wrong:.3g}); stages "
         f"{stages}")
 
-    # rerank evaluation: the teacher (cross) and the trained tower (dual)
+    res["bucketed"] = _teacher_buckets(ctx, cli_ctd, recorder, ctd_argv,
+                                       work, seen, plain, t_ctd)
+
+    # rerank evaluation: the teacher (cross) and the trained tower (dual),
+    # flat and with length buckets
     metrics = {}
     for mode, extra in (("cross", ["--checkpoint", teacher, "--teacher-arch",
                                    "bert", "--model-size", "full",
@@ -2234,17 +2751,22 @@ def phase_teacher(ctx):
                         ("dual", ["--checkpoint", ckpt, "--max-query-len",
                                   str(TRAIN_LQ), "--max-passage-len",
                                   str(TRAIN_LP)])):
-        lines, t_re = _call_cli(cli_rerank_eval.main, [
-            "--candidates-run", cands, "--queries", paths["queries"],
-            "--passages", paths["collection"], "--qrels", paths["qrels"],
-            "--mode", mode, "--batch-size", str(TEACHER_BATCH),
-            "--attention-impl", "pallas", *extra, *common])
-        metrics[mode] = dict(_last_json(lines), seconds=t_re)
-        if metrics[mode]["QueriesRanked"] != TEACHER_QUERIES:
-            raise AssertionError(f"rerank_eval {mode}: {metrics[mode]}")
-        log(f"[teacher] rerank_eval --mode {mode} ({t_re:.1f} s): "
-            + json.dumps({k: v for k, v in metrics[mode].items()
-                          if k != "seconds"}))
+        for layout, buckets in (("flat", []),
+                                ("bucketed", ["--bucket-lengths"])):
+            key = mode if layout == "flat" else f"{mode}_bucketed"
+            lines, t_re = _call_cli(cli_rerank_eval.main, [
+                "--candidates-run", cands, "--queries", paths["queries"],
+                "--passages", paths["collection"], "--qrels",
+                paths["qrels"], "--mode", mode, "--batch-size",
+                str(TEACHER_BATCH), "--attention-impl", "pallas", *extra,
+                *buckets, *common])
+            metrics[key] = dict(_last_json(lines), seconds=t_re)
+            if metrics[key]["QueriesRanked"] != TEACHER_QUERIES or not all(
+                    np.isfinite(v) for v in metrics[key].values()):
+                raise AssertionError(f"rerank_eval {key}: {metrics[key]}")
+            log(f"[teacher] rerank_eval --mode {mode} {layout} ({t_re:.1f} "
+                "s): " + json.dumps({k: v for k, v in metrics[key].items()
+                                     if k != "seconds"}))
     res["rerank_eval"] = metrics
 
     # export in both formats; each round-trips into cli.index
@@ -2281,6 +2803,70 @@ def phase_teacher(ctx):
     log(f"[teacher] teacher pairs/s {n_pairs / t_ctd:.1f} (end to end); "
         f"phase {res['seconds']:.1f} s")
     ctx["teacher"] = res
+
+
+def _teacher_buckets(ctx, cli_ctd, recorder, argv, work, flat, plain,
+                     t_flat):
+    """cli.create_training_data --bucket-lengths (the default ladder) over
+    the flat run's pairs: the same pairs, every score finite, the flat
+    run's sampled pairs within TEACHER_SAMPLE_TOL of the plain
+    attention's scores' spread (the mask ignored misses it: checked on
+    the flat run), head_dim-32 K5 launches counted by bucket length
+    (TEACHER_LAYERS - 1 a batch, none through the tiled forward), and
+    pairs/s beside the flat run's."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    seen, make_fn = {}, cli_ctd.make_cross_encoder_score_fn
+    shapes = dict(att.SHAPE_LAUNCHES)
+    tiled = att.ROUTE_LAUNCHES[("infer", "attn_fwd_launch")]
+    cli_ctd.make_cross_encoder_score_fn = recorder(seen)
+    try:
+        lines, t_ctd = _call_cli(cli_ctd.main, [
+            *argv, "--bucket-lengths", "--out-prefix",
+            os.path.join(work, "clb_")])
+    finally:
+        cli_ctd.make_cross_encoder_score_fn = make_fn
+    by_len = {}
+    for key, n in att.SHAPE_LAUNCHES.items():
+        if key[1] == "attn_infer_d32_launch" and n > shapes.get(key, 0):
+            length = f"{key[2]}x{key[3]}"
+            by_len[length] = by_len.get(length, 0) + n - shapes.get(key, 0)
+    if (sum(by_len.values()) != (TEACHER_LAYERS - 1) * seen["batches"]
+            or att.ROUTE_LAUNCHES[("infer", "attn_fwd_launch")] != tiled):
+        raise AssertionError(f"bucketed teacher: {by_len} head_dim-32 K5 "
+                             f"launches for {seen['batches']} batches")
+    got = dict(zip(map(tuple, np.concatenate(seen["pairs"]).tolist()),
+                   np.concatenate(seen["scores"]).tolist()))
+    pairs = np.concatenate(flat["pairs"])
+    if set(got) != set(map(tuple, pairs.tolist())) or not np.isfinite(
+            list(got.values())).all():
+        raise AssertionError("bucketed teacher: other pairs, or a score "
+                             "not finite")
+    sample = pairs[:len(plain)]
+    err = float(np.abs(np.array([got[tuple(p)] for p in sample.tolist()])
+                       - plain).max()) / float(plain.max() - plain.min())
+    if not err <= TEACHER_SAMPLE_TOL:
+        raise AssertionError(f"bucketed teacher sample: {err:.3g} of the "
+                             "plain scores' spread")
+    flat_s = np.concatenate(flat["scores"])
+    spread = float(flat_s.max() - flat_s.min())
+    moved = float(np.abs(np.array([got[tuple(p)] for p in pairs.tolist()])
+                         - flat_s).max()) / spread
+    n = len(pairs)
+    res = dict(pairs=n, seconds=t_ctd, pairs_per_s=n / t_ctd,
+               score_s=seen["s"], score_pairs_per_s=n / seen["s"],
+               batches=seen["batches"], d32_launches_by_shape=by_len,
+               sample_rel_err=err, max_rel_diff_from_flat=moved,
+               files=sorted(_last_json(lines)))
+    log(f"[teacher] create_training_data --bucket-lengths (default ladder):"
+        f" {n} pairs in {t_ctd:.1f} s = {n / t_ctd:.1f} pairs/s end to end "
+        f"(flat: {n / t_flat:.1f}), {n / seen['s']:.1f} pairs/s in the "
+        f"score calls ({seen['s']:.2f} s, {seen['batches']} batches); "
+        f"head_dim-32 K5 launches by BxL {by_len} (tiled forward: 0); "
+        f"sampled pairs within {err:.3g} of the plain attention's spread "
+        f"(tolerance {TEACHER_SAMPLE_TOL}); every pair within {moved:.3g} "
+        "of its flat score (of the spread)")
+    return res
 
 
 # ------------------------------------------------------------------ serve
@@ -2456,7 +3042,7 @@ def _counted(total):
     yield span
     span.update(read_launches())
     for k, v in span.items():
-        total[k] += v
+        total[k] = total.get(k, 0) + v
 
 
 def _one_launch_a_search(tag, passes, span):
@@ -3302,7 +3888,7 @@ def smi_line():
         return f"nvidia-smi unavailable: {e}"
 
 
-def _kernel_record(ctx, name, src, ref, tag, launches, err):
+def _kernel_record(ctx, name, src, ref, tag, launches, err, by_shape=None):
     t = ctx["timings"][name][tag]
     rec = {
         "name": name, "route": "cuda", "source": src, "replaces": ref,
@@ -3316,11 +3902,14 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err):
             rec[key] = t[key]
     # the kernel's other timed shapes, by tag
     others = {k: {key: v[key] for key in ("ms", "generic_ms", "plain_ms",
-                                          "matmul_ms") if key in v}
+                                          "matmul_ms", "library_ms")
+                  if key in v}
               | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
               for k, v in ctx["timings"][name].items() if k != tag}
     if others:
         rec["other_shapes"] = others
+    if by_shape:
+        rec["launches_by_shape"] = by_shape
     return rec
 
 
@@ -3370,15 +3959,17 @@ def _counters():
 # launch of the main path through its sm90 kernel
 ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
            "fused_binmax": ("fused_binmax", "fused_binmax_sm90_launch")}
-# K5's entry points on each path: the query encode's L=30 takes the
-# short-row kernel; the teacher path adds its passage tower (L=256,
-# head_dim 64: the sm90 forward) and the MiniLM teacher (head_dim 32:
-# attention_infer_d32.cu); so does the serve path's rerank daemon (its
-# warm-up encodes a passage at L=256). No path's K5 takes the tiled
-# forward (read, to show it stays 0)
+# K5's entry points on each path: the query encode's L=30 and the
+# passage buckets up to 64 take the short-row kernel; passages at
+# 64 < L <= 256 (the train path's evaluation, the pipeline's index
+# calls, the teacher path's passage tower) the sm90 forward; the MiniLM
+# teacher (head_dim 32) attention_infer_d32.cu, on the teacher path and
+# in the serve path's rerank daemon (whose warm-up encodes a passage at
+# L=256). No path's K5 takes the tiled forward (read, to show it stays
+# 0)
 K5_ALL = ("attn_infer_short_launch", "attn_fwd_sm90_launch",
           "attn_infer_d32_launch", "attn_fwd_launch")
-K5_ENTRIES = {"pipeline": ("attn_infer_short_launch",),
+K5_ENTRIES = {"train": K5_ALL[:2], "pipeline": K5_ALL[:2],
               "teacher": K5_ALL[:3], "serve": K5_ALL[:3]}
 
 
@@ -3392,6 +3983,8 @@ def reset_launches():
         for counts in ("ENTRY_LAUNCHES", "ROUTE_LAUNCHES"):
             for key in getattr(mod, counts, {}):
                 getattr(mod, counts)[key] = 0
+        if hasattr(mod, "SHAPE_LAUNCHES"):
+            mod.SHAPE_LAUNCHES.clear()
 
 
 def read_launches():
@@ -3413,6 +4006,10 @@ def read_launches():
     for entry in K5_ALL:
         out[f"k5:{entry}"] = att.ROUTE_LAUNCHES[("infer", entry)]
     out["k5"] = att.LAUNCHES["infer"]  # K5, every route
+    # K5 by shape: "shape:<entry>:<B>x<L>"
+    for (name, entry, b, length), n in att.SHAPE_LAUNCHES.items():
+        if name == "infer" and n:
+            out[f"shape:{entry}:{b}x{length}"] = n
     return out
 
 
@@ -3478,8 +4075,10 @@ def main(argv=None) -> int:
             ("search", lambda c: phase_search(c, *c.pop("stores")),
              ("extract_topk", "fused_binmax")),
             ("train", phase_train,
-             ("attention_train_fwd", "attention_train_bwd")),
-            ("pipeline", phase_pipeline, ("extract_topk", "attention_infer")),
+             ("attention_train_fwd", "attention_train_bwd", "extract_topk",
+              "attention_infer", "attention_infer_sm90")),
+            ("pipeline", phase_pipeline,
+             ("extract_topk", "attention_infer", "attention_infer_sm90")),
             ("teacher", phase_teacher,
              ("attention_infer", "attention_infer_sm90",
               "attention_infer_d32")),
@@ -3499,7 +4098,8 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
     missing = [k for k, v in launches.items() if v <= 0
-               and not k.startswith(("entry:", "k5:")) and k != "k5"]
+               and not k.startswith(("entry:", "k5:", "shape:"))
+               and k != "k5"]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     log(f"[main path] kernel launches: {launches}")
@@ -3516,10 +4116,18 @@ def main(argv=None) -> int:
                                 "attn_err_bf16",
                                 "k5_err", "k1_checked", "build_s")}))
     log(smi_line())
+    def by_shape(counter):
+        """The main path's K5 launches of one entry point, by B x L."""
+        if not isinstance(counter[1], tuple):
+            return None
+        prefix = f"shape:{counter[1][1]}:"
+        return {k[len(prefix):]: v for k, v in launches.items()
+                if k.startswith(prefix)}
+
     log(json.dumps({"kernels": [
         _kernel_record(ctx, name, f"cldrd_tpu_torch/{src}", ref, tag,
-                       launches[name], ctx[err])
-        for name, _, src, ref, tag, err in KERNELS]}))
+                       launches[name], ctx[err], by_shape(counter))
+        for name, counter, src, ref, tag, err in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -45,11 +45,6 @@ from .common import (
 
 logger = logging.getLogger("cldrd_tpu_torch.cli.create_training_data")
 
-BUCKETS_UNPORTED = ("--bucket-lengths: length-bucketed teacher scoring is "
-                    "not ported yet (ROADMAP A4); score flat or with "
-                    "--pack-pairs")
-
-
 def add_teacher_arch(p: argparse.ArgumentParser) -> None:
     p.add_argument("--teacher-arch", choices=("distilbert", "bert"),
                    default="distilbert",
@@ -83,8 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-length", type=int, default=256)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--bucket-lengths", type=int, nargs="*", default=None,
-                   help="length-bucketed teacher scoring (not ported yet: "
-                        "ROADMAP A4)")
+                   help="enable length-bucketed teacher scoring: pad each "
+                        "(q ++ p) pair only to the smallest listed bucket "
+                        "that fits it (empty = 32/64/../max ladder). "
+                        "The same scores, ~token-proportional device cost")
     p.add_argument("--pack-pairs", action="store_true",
                    help="pack several (q ++ p) pairs into each max-length "
                         "row (segment-masked attention; distilbert teacher "
@@ -143,8 +140,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     setup_logging()
     args = build_parser().parse_args(argv)
     reconcile_teacher_arch(args)
-    if args.bucket_lengths is not None:
-        raise NotImplementedError(BUCKETS_UNPORTED)
     if args.teacher_oracle_qrels:
         if args.teacher_checkpoint:
             raise SystemExit("--teacher-oracle-qrels and "
@@ -180,7 +175,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     qid_to_scored = rerank_candidates_with_teacher(
         ranklists, score_fn, qid_to_query, pid_to_passage, tokenizer,
         max_len=args.max_length, batch_size=args.batch_size,
-        pack_pairs=args.pack_pairs,
+        bucket_lengths=args.bucket_lengths, pack_pairs=args.pack_pairs,
         with_token_type_ids=args.teacher_arch == "bert")
     elapsed = time.perf_counter() - t0
     logger.info("scored %d pairs in %.3f s (%.1f pairs/s, tokenization "

@@ -9,10 +9,12 @@
 Weights hand forward in memory between iterations; each iteration writes
 resumable checkpoints under ``<run-folder>/curriculum_iterN``. With
 ``--eval-queries``/``--eval-qrels`` every iteration is followed by a
-retrieval evaluation: the passage tower encodes the collection into a
-flat index on the device, the query tower encodes the queries, the exact
-top-k goes to ``curriculum_iterN.run.tsv`` and the metrics are appended
-to ``<run-folder>/curriculum_eval.tsv``.
+retrieval evaluation: the passage tower encodes the collection straight
+into a flat index on the device (no host round trip; length-bucketed
+with ``--eval-bucket-lengths``), the query tower encodes the queries,
+the exact top-k goes to ``curriculum_iterN.run.tsv`` and the metrics are
+appended to ``<run-folder>/curriculum_eval.tsv``. The index is freed
+before the next iteration trains.
 """
 from __future__ import annotations
 
@@ -65,21 +67,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-trec", action="store_true")
     p.add_argument("--eval-batch-size", type=int, default=128,
                    help="encode + search batch size of the evaluation")
+    p.add_argument("--eval-bucket-lengths", type=int, nargs="*", default=None,
+                   help="length-bucketed passage encoding for the "
+                        "per-iteration index build (empty list = default "
+                        "ladder); the same embeddings, ~token-proportional "
+                        "encode time")
     add_model_args(p, train=True)
     return p
 
 
-def _make_eval_hook(args, base: TrainConfig, tokenizer):
+def _make_eval_hook(args, base: TrainConfig, model_config, tokenizer):
     """Per-iteration index build + retrieval + metrics."""
     import numpy as np
+    import torch
 
+    from cldrd_tpu_torch import index as index_lib
     from cldrd_tpu_torch.data.sequence_dataset import SequenceDataset
     from cldrd_tpu_torch.evaluation import RankingEvaluator
-    from cldrd_tpu_torch.index import (
-        FlatIPIndex,
-        encode_dataset,
-        make_encode_fn,
-    )
     from cldrd_tpu_torch.search import retrieve_to_run_file
     from cldrd_tpu_torch.utils import MetricMonitor
 
@@ -93,11 +97,13 @@ def _make_eval_hook(args, base: TrainConfig, tokenizer):
 
     def hook(i, state, trainer):
         model = trainer.model
-        p_embs, pids = encode_dataset(make_encode_fn(model, "passage_embs"),
-                                      passages_ds, args.eval_batch_size)
-        index = FlatIPIndex.build(p_embs, pids, device=trainer.device)
-        q_embs, qids = encode_dataset(make_encode_fn(model, "query_embs"),
-                                      queries_ds, args.eval_batch_size)
+        index = index_lib.build_index_on_device(
+            index_lib.make_encode_fn(model, "passage_embs"), passages_ds,
+            args.eval_batch_size, dim=model_config.dim,
+            bucket_lengths=args.eval_bucket_lengths, device=trainer.device)
+        q_embs, qids = index_lib.encode_dataset(
+            index_lib.make_encode_fn(model, "query_embs"), queries_ds,
+            args.eval_batch_size)
         run_path = os.path.join(base.run_folder,
                                 f"curriculum_iter{i + 1}.run.tsv")
         retrieve_to_run_file(index, q_embs, qids, run_path,
@@ -109,6 +115,10 @@ def _make_eval_hook(args, base: TrainConfig, tokenizer):
             if isinstance(v, (int, float, np.integer, np.floating))})
         monitor.write(table_path)
         logger.info("iteration %d eval: %s", i + 1, metrics)
+        # nothing of the evaluation stays on the device while training
+        del index
+        if trainer.device.type == "cuda":
+            torch.cuda.empty_cache()
         model.train()
 
     return hook
@@ -157,7 +167,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not (args.eval_queries and args.eval_qrels):
             raise SystemExit("--eval-queries and --eval-qrels go together")
         os.makedirs(base.run_folder, exist_ok=True)
-        hook = _make_eval_hook(args, base, tokenizer)
+        hook = _make_eval_hook(args, base, model_config, tokenizer)
     run_curriculum(iterations, model_config, dataset_factory,
                    device=args.device, after_iteration=hook)
     return 0

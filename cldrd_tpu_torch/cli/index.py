@@ -6,7 +6,8 @@ shards + ids.npy) that both packages read; with ``--ivf-nlist`` also the
 IVF/IVFPQ store at ``<out>/ivf`` that ``cli.serve --ivf`` serves.
 
     python -m cldrd_tpu_torch.cli.index --collection collection.tsv \\
-        --checkpoint model.pth.tar --out index_dir [--ivf-nlist 512]
+        --checkpoint model.pth.tar --out index_dir [--ivf-nlist 512] \\
+        [--bucket-lengths] [--token-cache cache_dir]
     # the IVF companion of an existing store, without re-encoding:
     python -m cldrd_tpu_torch.cli.index --collection collection.tsv \\
         --out index_dir --ivf-only --ivf-nlist 512 [--pq-m 96]
@@ -23,6 +24,11 @@ from typing import List, Optional
 
 import torch
 
+from cldrd_tpu_torch.data import (
+    TokenCacheDataset,
+    token_cache_exists,
+    write_token_cache,
+)
 from cldrd_tpu_torch.data.sequence_dataset import SequenceDataset
 from cldrd_tpu_torch.index import IVFIndex, encode_dataset, make_encode_fn
 from cldrd_tpu_torch.index.persistence import (
@@ -59,6 +65,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="encoder activation dtype")
+    p.add_argument("--bucket-lengths", type=int, nargs="*", default=None,
+                   help="enable length-bucketed encoding: pad each passage "
+                        "only to the smallest listed bucket that fits it "
+                        "(empty list = default 32/64/128/... ladder). "
+                        "The same embeddings, ~token-proportional encode "
+                        "time; index row order becomes length-grouped "
+                        "(immaterial: identity rides on the id map)")
+    p.add_argument("--token-cache", default=None,
+                   help="directory for the pre-tokenized corpus cache: "
+                        "built on first use, then streamed from a memmap "
+                        "on every rebuild (the curriculum re-encodes the "
+                        "same collection after each iteration)")
     p.add_argument("--ivf-nlist", type=int, default=None,
                    help="ALSO build an IVF index (k-means coarse quantizer "
                         "with this many cells) into <out>/ivf, the "
@@ -142,18 +160,30 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = load_dual_encoder(args.checkpoint, cfg, args.share_weights,
                               args.cosine, compute_dtype_from_args(args),
                               args.device)
-    dataset = SequenceDataset.create_from_seqs_file(
-        args.collection, tokenizer, args.max_length, is_query=False)
+    stats = {}
+    if args.token_cache:
+        if not token_cache_exists(args.token_cache):
+            logger.info("building token cache at %s ...", args.token_cache)
+            t0 = time.perf_counter()
+            write_token_cache(SequenceDataset.create_from_seqs_file(
+                args.collection, tokenizer, args.max_length,
+                is_query=False), args.token_cache)
+            stats["token_cache_write_s"] = time.perf_counter() - t0
+        dataset = TokenCacheDataset(args.token_cache)
+    else:
+        dataset = SequenceDataset.create_from_seqs_file(
+            args.collection, tokenizer, args.max_length, is_query=False)
     encode = make_encode_fn(model, "passage_embs")
     t0 = time.perf_counter()
-    embeddings, ids = encode_dataset(encode, dataset, args.batch_size)
+    embeddings, ids = encode_dataset(encode, dataset, args.batch_size,
+                                     bucket_lengths=args.bucket_lengths)
     elapsed = time.perf_counter() - t0
     logger.info("encoded %d passages in %.1fs (%.0f passages/s)", len(ids),
                 elapsed, len(ids) / max(elapsed, 1e-9))
     write_embeddings(args.out, embeddings, ids, dtype=args.store_dtype)
     logger.info("index written to %s", args.out)
-    stats = {"passages": len(ids), "encode_s": elapsed,
-             "passages_per_s": len(ids) / max(elapsed, 1e-9)}
+    stats.update(passages=len(ids), encode_s=elapsed,
+                 passages_per_s=len(ids) / max(elapsed, 1e-9))
     if args.ivf_nlist:
         stats.update(_build_ivf(args, embeddings, ids))
     print(json.dumps(stats))

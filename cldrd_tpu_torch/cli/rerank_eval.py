@@ -40,7 +40,6 @@ from .common import (
     setup_logging,
 )
 from .create_training_data import (
-    BUCKETS_UNPORTED,
     add_teacher_arch,
     reconcile_teacher_arch,
     teacher_config,
@@ -74,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-passage-len", type=int, default=256)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--bucket-lengths", type=int, nargs="*", default=None,
-                   help="length-bucketed scoring (not ported yet: ROADMAP "
-                        "A4)")
+                   help="length-bucketed scoring (the same scores, "
+                        "~token-proportional device cost)")
     p.add_argument("--compute-dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
     add_model_args(p)
@@ -87,8 +86,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if bool(args.checkpoint) == bool(args.run_folder):
         raise SystemExit("pass exactly one of --checkpoint / --run-folder")
-    if args.bucket_lengths is not None:
-        raise NotImplementedError(BUCKETS_UNPORTED)
     dtype = compute_dtype_from_args(args)
     if args.mode == "cross":
         reconcile_teacher_arch(args)
@@ -122,11 +119,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.checkpoint:
         metrics = evaluator.compute_metrics(
             score_fn_factory(params_loader(args.checkpoint)), dataset,
-            args.batch_size)
+            args.batch_size, bucket_lengths=args.bucket_lengths)
         print(json.dumps(metrics, indent=2, default=float))
         return 0
     cre = ContinueRerankEvaluator(evaluator, dataset, score_fn_factory,
-                                  params_loader, batch_size=args.batch_size)
+                                  params_loader, batch_size=args.batch_size,
+                                  bucket_lengths=args.bucket_lengths)
     results = cre.evaluate_folder(args.run_folder, results_path=args.results)
     print(json.dumps({str(k): v for k, v in results.items()},
                      indent=2, default=float))

@@ -1,3 +1,11 @@
+from .bucketing import (
+    BucketSpec,
+    bucket_specs,
+    bucketize,
+    default_bucket_lengths,
+    max_emitted_rows,
+    required_lengths,
+)
 from .docstore import TsvDocStore
 from .label_modes import LABEL_MODES, labels_for, nway_for
 from .loaders import (
@@ -18,9 +26,22 @@ from .teacher import (
     build_curriculum_files,
     rerank_candidates_with_teacher,
 )
-from .tokenization import HashTokenizer, HFTokenizerAdapter
+from .token_cache import (
+    TokenCacheDataset,
+    token_cache_exists,
+    write_token_cache,
+)
+from .tokenization import (
+    HashTokenizer,
+    HFTokenizerAdapter,
+    train_wordpiece_tokenizer,
+)
 
-__all__ = ["CURRICULUM_BUCKETS", "HashTokenizer", "HFTokenizerAdapter",
+__all__ = ["BucketSpec", "CURRICULUM_BUCKETS", "HashTokenizer",
+           "HFTokenizerAdapter", "TokenCacheDataset", "bucket_specs",
+           "bucketize", "default_bucket_lengths", "max_emitted_rows",
+           "required_lengths", "token_cache_exists",
+           "train_wordpiece_tokenizer", "write_token_cache",
            "LABEL_MODES", "NwayBatch", "NwayDataset", "PackedBatch",
            "RerankBatch", "RerankingDataset", "SequenceBatch",
            "SequenceDataset", "TsvDocStore", "bucket_example",

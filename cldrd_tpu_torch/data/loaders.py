@@ -1,16 +1,46 @@
 """Host-side TSV / JSONL loaders for queries, passages and teacher
-rankings (pure-Python copy of ``cldrd_tpu/data/loaders.py``)."""
+rankings (copy of ``cldrd_tpu/data/loaders.py``).
+
+Whole-file parses take the native mmap parsers of
+``cldrd_tpu_torch.native`` (built with g++ at first use); with them
+turned off (``CLDRD_TPU_TORCH_NO_NATIVE=1``) or unbuildable, and for a
+JSONL file outside the flat training schema, the pure-Python path runs
+and a log line says so. ``PARSES`` counts files parsed by each path.
+"""
 from __future__ import annotations
 
 import json
+import logging
 from typing import Any, Dict, Iterable, List, Optional, Union
 
+from cldrd_tpu_torch import native
+
 Passage = Union[str, Dict[str, str]]
+
+logger = logging.getLogger(__name__)
+
+PARSES = {"native": 0, "python": 0}
+
+
+def _native_tsv(path: str, allow_title: bool):
+    """The native TSV parse of ``path``, or None (logged) when the native
+    parsers are unavailable."""
+    try:
+        out = native.parse_id_text_tsv(path, allow_title=allow_title)
+    except ImportError as e:
+        logger.warning("%s: pure-Python TSV parse (%s)", path, e)
+        return None
+    PARSES["native"] += 1
+    return out
 
 
 def load_queries(path: str) -> Dict[int, str]:
     """TSV ``qid\\ttext`` -> {qid: text}."""
-    out: Dict[int, str] = {}
+    out = _native_tsv(path, allow_title=False)
+    if out is not None:
+        return out
+    PARSES["python"] += 1
+    out = {}
     with open(path, "r", encoding="utf-8") as f:
         for line in f:
             qid, text = line.rstrip("\n").split("\t", 1)
@@ -20,7 +50,11 @@ def load_queries(path: str) -> Dict[int, str]:
 
 def load_passages(path: str) -> Dict[int, Passage]:
     """TSV ``pid\\ttext`` or ``pid\\ttitle\\tpara`` -> {pid: text | {title, para}}."""
-    out: Dict[int, Passage] = {}
+    out = _native_tsv(path, allow_title=True)
+    if out is not None:
+        return out
+    PARSES["python"] += 1
+    out = {}
     with open(path, "r", encoding="utf-8") as f:
         for line in f:
             parts = line.rstrip("\n").split("\t")
@@ -44,9 +78,26 @@ def passage_text(passage: Passage, sep_token: str = "[SEP]") -> str:
 def iter_jsonl(path: str, rank: int = -1,
                nranks: Optional[int] = None) -> Iterable[dict]:
     """Stream a JSONL file; with ``rank >= 0`` yield only the lines where
-    ``line_idx % nranks == rank``."""
+    ``line_idx % nranks == rank``.
+
+    Unsharded reads parse the whole file natively in one pass; a file with
+    any construct outside the flat training schema (blank lines included)
+    is parsed line by line with ``json.loads`` instead. Rank-sharded reads
+    stream in Python, so each rank parses only its own lines."""
     if rank >= 0:
         assert nranks and 0 <= rank < nranks
+    else:
+        try:
+            rows = native.parse_jsonl(path)
+        except ImportError as e:
+            logger.warning("%s: pure-Python JSONL parse (%s)", path, e)
+        except ValueError as e:  # outside the flat training schema
+            logger.info("%s: JSONL parsed with json.loads (%s)", path, e)
+        else:
+            PARSES["native"] += 1
+            yield from rows
+            return
+    PARSES["python"] += 1
     with open(path, "r", encoding="utf-8") as f:
         for line_idx, line in enumerate(f):
             if rank >= 0 and line_idx % nranks != rank:

@@ -2,10 +2,10 @@
 (port of ``cldrd_tpu/data/reranking_dataset.py``).
 
 Run-file parsing, the title-[SEP]-para join and dual- vs cross-encoder
-collation, padded to a fixed batch shape. ``batches`` and
-``batches_packed`` give the reference's numpy arrays element for element;
-``batches_bucketed`` (length buckets, ``data/bucketing.py``) is not
-ported yet (ROADMAP A4) and raises.
+collation, padded to a fixed batch shape. ``batches``,
+``batches_packed`` and ``batches_bucketed`` (length buckets,
+``data/bucketing.py``) give the reference's numpy arrays element for
+element.
 """
 from __future__ import annotations
 
@@ -201,14 +201,109 @@ class RerankingDataset:
                 },
             )
 
-    def batches_bucketed(self, batch_size: int,
-                         bucket_lengths: Optional[List[int]] = None,
-                         batch_multiple: int = 1) -> Iterator[RerankBatch]:
-        """Length-bucketed batches (``data/bucketing.py``): not ported yet
-        (ROADMAP A4)."""
-        raise NotImplementedError(
-            "length-bucketed batches (--bucket-lengths) are not ported yet "
-            "(ROADMAP A4); use batches() or batches_packed()")
+    def batches_bucketed(
+        self,
+        batch_size: int,
+        bucket_lengths: Optional[List[int]] = None,
+        batch_multiple: int = 1,
+    ) -> Iterator[RerankBatch]:
+        """Length-bucketed batches: scoring at ~token-proportional FLOPs.
+
+        Pair order is free for every consumer — ``score_pairs`` and the
+        teacher reranker regroup scores by qid — so rows regroup into the
+        ``data/bucketing.py`` ladder: cross-encoder mode buckets the joined
+        ``q ++ [SEP] ++ p`` rows; dual mode buckets the passage tower and
+        keeps queries at ``query_max_len`` (they are ~30 tokens already).
+        Padding is attention-masked, so every score is identical to the
+        flat layout's in fp32; under bfloat16 compute, kernels and
+        reductions differ per shape, so scores can move in the last bits,
+        the same variation any batch-size change causes. Per-bucket
+        batch sizes scale inversely with length (constant tokens per
+        dispatch, no wasted rows)."""
+        from .bucketing import bucket_specs, required_lengths
+
+        max_len = self.max_len if self.is_cross_encoder else self.passage_max_len
+        specs = bucket_specs(
+            max_len, batch_size, bucket_lengths, batch_multiple
+        )
+        cuts = np.asarray([s.length for s in specs])
+        # pending rows per bucket: (qid, pid, main ids, main mask[, q ids,
+        # q mask]) — tokenized ONCE at full width; emission slices to the
+        # bucket length, which is lossless because a row in bucket L has
+        # required length <= L (so neither width truncates it differently)
+        pend: List[List[tuple]] = [[] for _ in specs]
+
+        def emit(b: int) -> RerankBatch:
+            spec, rows = specs[b], pend[b]
+            pend[b] = []
+            n = len(rows)
+            bz, L = spec.batch_size, spec.length
+            qids = np.full((bz,), -1, np.int64)
+            pids = np.full((bz,), -1, np.int64)
+            main_ids = np.zeros((bz, L), np.int32)
+            main_mask = np.zeros((bz, L), np.int32)
+            main_types = (np.zeros((bz, L), np.int32)
+                          if self.with_token_type_ids else None)
+            for r, row in enumerate(rows):
+                qids[r], pids[r] = row[0], row[1]
+                main_ids[r] = row[2][:L]
+                main_mask[r] = row[3][:L]
+                if main_types is not None:
+                    main_types[r] = row[-1][:L]
+            if self.is_cross_encoder:
+                qp = {"input_ids": main_ids, "attention_mask": main_mask}
+                if main_types is not None:
+                    qp["token_type_ids"] = main_types
+                return RerankBatch(
+                    qids=qids, pids=pids, n_valid=n, query_passage=qp,
+                )
+            lq = self.query_max_len
+            q_ids = np.zeros((bz, lq), np.int32)
+            q_mask = np.zeros((bz, lq), np.int32)
+            for r, row in enumerate(rows):
+                q_ids[r] = row[4]
+                q_mask[r] = row[5]
+            return RerankBatch(
+                qids=qids, pids=pids, n_valid=n,
+                query={"input_ids": q_ids, "attention_mask": q_mask},
+                passage={"input_ids": main_ids, "attention_mask": main_mask},
+            )
+
+        chunk = 1024
+        for start in range(0, len(self.pairs), chunk):
+            idxs = range(start, min(start + chunk, len(self.pairs)))
+            queries = [self.qid_to_query[self.pairs[i][0]] for i in idxs]
+            passages = [
+                passage_text(self.pid_to_passage[self.pairs[i][1]], self._sep)
+                for i in idxs
+            ]
+            if self.is_cross_encoder:
+                toks = self.tokenizer(
+                    queries, max_len, pairs=passages,
+                    **({"return_token_type_ids": True}
+                       if self.with_token_type_ids else {}),
+                )
+                q_toks = None
+            else:
+                toks = self.tokenizer(passages, max_len)
+                q_toks = self.tokenizer(queries, self.query_max_len)
+            ids = np.asarray(toks["input_ids"])
+            mask = np.asarray(toks["attention_mask"])
+            lens = required_lengths(mask)
+            for j, (i, b) in enumerate(zip(idxs, np.searchsorted(cuts, lens))):
+                row = (self.pairs[i][0], self.pairs[i][1], ids[j], mask[j])
+                if q_toks is not None:
+                    row += (np.asarray(q_toks["input_ids"][j]),
+                            np.asarray(q_toks["attention_mask"][j]))
+                if self.with_token_type_ids:
+                    # always the LAST element; emit() slices row[-1]
+                    row += (np.asarray(toks["token_type_ids"][j]),)
+                pend[int(b)].append(row)
+                if len(pend[int(b)]) == specs[int(b)].batch_size:
+                    yield emit(int(b))
+        for b in range(len(specs)):
+            if pend[b]:
+                yield emit(b)
 
 
 # The reference's missing ``dataset::MsMacroRerankingDataset``

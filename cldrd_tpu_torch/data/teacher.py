@@ -109,9 +109,10 @@ def rerank_candidates_with_teacher(
     ``RerankingDataset`` (via ``from_pairs``), so evaluation-time and
     data-creation-time batches are identical by construction.
 
-    ``bucket_lengths`` (length-bucketed scoring) raises: not ported yet
-    (ROADMAP A4). ``pack_pairs`` packs several pairs per row
-    (distilbert cross-encoder score_fn required)."""
+    ``bucket_lengths`` (a list, possibly empty for the 32/64/../max
+    ladder): length-bucketed scoring, the same scores at a device cost
+    near proportional to the real tokens. ``pack_pairs`` packs several
+    pairs per row (distilbert cross-encoder score_fn required)."""
     from .reranking_dataset import RerankingDataset
 
     pairs = [

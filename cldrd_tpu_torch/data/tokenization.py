@@ -110,6 +110,52 @@ class HFTokenizerAdapter:
         return out
 
 
+def train_wordpiece_tokenizer(
+    texts,
+    vocab_size: int = 30522,
+    lowercase: bool = True,
+):
+    """Train a real WordPiece tokenizer (HF ``tokenizers``, Rust) on
+    ``texts`` and wrap it for the fixed-shape contract (copy of the
+    reference's). The algorithm and stack are those of
+    ``distilbert-base-uncased``; the vocab is learned from local text
+    instead of downloaded. Needs ``tokenizers`` and ``transformers``,
+    imported here only; returns an :class:`HFTokenizerAdapter`.
+    """
+    from tokenizers import Tokenizer, decoders, models, normalizers, \
+        pre_tokenizers, trainers
+    from tokenizers.processors import TemplateProcessing
+    from transformers import PreTrainedTokenizerFast
+
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=lowercase)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.decoder = decoders.WordPiece()
+    trainer = trainers.WordPieceTrainer(
+        vocab_size=vocab_size,
+        special_tokens=["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"],
+    )
+    tok.train_from_iterator(texts, trainer)
+    cls_id = tok.token_to_id("[CLS]")
+    sep_id = tok.token_to_id("[SEP]")
+    tok.post_processor = TemplateProcessing(
+        single="[CLS] $A [SEP]",
+        # explicit segment ids, BERT semantics: first sequence (incl. both
+        # surrounding specials) = 0, pair segment + its [SEP] = 1
+        pair="[CLS]:0 $A:0 [SEP]:0 $B:1 [SEP]:1",
+        special_tokens=[("[CLS]", cls_id), ("[SEP]", sep_id)],
+    )
+    fast = PreTrainedTokenizerFast(
+        tokenizer_object=tok,
+        pad_token="[PAD]",
+        unk_token="[UNK]",
+        cls_token="[CLS]",
+        sep_token="[SEP]",
+        mask_token="[MASK]",
+    )
+    return HFTokenizerAdapter(fast)
+
+
 class HashTokenizer:
     """Deterministic hash-bucket tokenizer (no vocab files, no deps).
 

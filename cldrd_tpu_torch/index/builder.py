@@ -1,29 +1,94 @@
-"""Corpus/query encoding: text -> CLS embeddings (port of ``make_encode_fn``
-and ``encode_dataset`` from ``cldrd_tpu/index/builder.py``).
+"""Corpus/query encoding: text -> CLS embeddings, and index builds (port
+of ``cldrd_tpu/index/builder.py``, one device).
 
 Batches have a fixed shape (the ragged tail is padded; ``n_valid`` says
-how many rows are real). Tokenization runs on the host while the device
-encodes earlier batches: each batch's embeddings copy to the host behind
-an event, and the host waits for a batch only a few batches later.
+how many rows are real), or, with ``bucket_lengths``, one shape per
+length bucket (``data/bucketing.py``). Tokenization runs on a background
+thread ``prefetch_depth`` batches ahead; tokens cross to the device
+packed in 3 bytes a token (uint16 ids, uint8 mask) through pinned
+staging and are widened there. ``encode_dataset`` copies each batch's
+embeddings to the host behind an event and waits for a batch only a few
+batches later; ``build_index_on_device`` writes them into a
+preallocated device store instead, so they never leave the card.
 """
 from __future__ import annotations
 
 import logging
 import time
 from collections import deque
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from cldrd_tpu_torch.data.prefetch import prefetch
 from cldrd_tpu_torch.data.sequence_dataset import SequenceDataset
-from cldrd_tpu_torch.device import to_host_async
+from cldrd_tpu_torch.device import resolve_device, to_host_async
 
 logger = logging.getLogger(__name__)
 
 EncodeFn = Callable[[Dict[str, np.ndarray]], torch.Tensor]
 
 _IN_FLIGHT = 4  # batches left on the device before their results are fetched
+
+
+
+def _batch_stream(dataset, batch_size: int, bucket_lengths,
+                  batch_multiple: int = 1):
+    """Resolve the batch iterator: flat fixed-shape batches, or
+    length-bucketed ones (rows regrouped by valid length so short
+    passages stop paying max_length work; the same embeddings).
+
+    Returns ``(iterator, max_batch_rows, emitted_rows_bound)``; the latter
+    two size device append buffers (bucketed batches vary in row count and
+    pad at most one partial batch per bucket)."""
+    if bucket_lengths is None:
+        n_batches = -(-max(len(dataset), 1) // batch_size)
+        return dataset.batches(batch_size), batch_size, n_batches * batch_size
+    from cldrd_tpu_torch.data.bucketing import (
+        bucket_specs,
+        bucketize,
+        max_emitted_rows,
+    )
+
+    # () / [] selects the default power-of-two ladder; None (handled
+    # above) means no bucketing at all
+    specs = bucket_specs(dataset.max_length, batch_size,
+                         list(bucket_lengths) or None, batch_multiple)
+    if hasattr(dataset, "batches_bucketed"):
+        it = dataset.batches_bucketed(specs)  # sorted: minimal padding
+    else:
+        it = bucketize(dataset.batches(batch_size), specs)
+    max_bz = max(s.batch_size for s in specs)
+    return it, max_bz, max_emitted_rows(len(dataset), specs)
+
+
+def compact_tokens(tokens: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Host-side payload compaction (the reference's ``_compact_tokens``):
+    WordPiece ids fit uint16 and the mask is 0/1, so a token travels in 3
+    bytes instead of 8; ids out of uint16's range stay as they are."""
+    ids = tokens["input_ids"]
+    if ids.dtype != np.uint16 and ids.size and ids.max() < (1 << 16) \
+            and ids.min() >= 0:
+        ids = ids.astype(np.uint16)
+    return {"input_ids": ids,
+            "attention_mask": tokens["attention_mask"].astype(np.uint8)}
+
+
+def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A compacted token array on ``dev`` as int64. uint16 ids travel as
+    the same two bytes typed int16 (torch's uint16 has few operators) and
+    are widened with ``& 0xFFFF``, which restores ids >= 32,768. On the
+    card the copy is staged through pinned memory and does not block."""
+    wide16 = x.dtype == np.uint16
+    host = torch.from_numpy(np.ascontiguousarray(
+        x.view(np.int16) if wide16 else x))
+    if dev.type == "cuda":
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        host = pinned.to(dev, non_blocking=True)
+    out = host.to(torch.int64)
+    return out & 0xFFFF if wide16 else out
 
 
 def make_encode_fn(model, method: str) -> EncodeFn:
@@ -38,22 +103,31 @@ def make_encode_fn(model, method: str) -> EncodeFn:
 
     def encode(tokens):
         with torch.inference_mode():
-            batch = {k: torch.as_tensor(tokens[k]).to(dev, torch.int64)
-                     for k in ("input_ids", "attention_mask")}
+            batch = {k: _to_device(v, dev)
+                     for k, v in compact_tokens(tokens).items()}
             return fn(batch).float()
 
     return encode
 
 
 def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
-                   batch_size: int, log_every: int = 200
+                   batch_size: int, log_every: int = 200,
+                   prefetch_depth: int = 4, bucket_lengths=None,
+                   batch_multiple: int = 1
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Encode every sequence; returns (embeddings fp32 [N, D], ids int64
-    [N]). Raises ``FloatingPointError`` if any embedding is NaN."""
+    [N]). Raises ``FloatingPointError`` if any embedding is NaN.
+
+    ``bucket_lengths``: length-bucketed encoding (a sequence of bucket
+    lengths, or ``()`` for the default power-of-two ladder). Rows come
+    back GROUPED BY LENGTH, not in dataset order: pair embeddings with
+    the returned ``ids``, never with the input row order."""
+    batches, _, _ = _batch_stream(dataset, batch_size, bucket_lengths,
+                                  batch_multiple)
     emb_chunks, id_chunks = [], []
     pending: deque = deque()
     t0 = time.perf_counter()
-    n_batches = 0
+    n_batches = n_done = 0
 
     def fetch():
         (embs,), done, ids = pending.popleft()
@@ -62,15 +136,15 @@ def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
         emb_chunks.append(embs.numpy())
         id_chunks.append(ids)
 
-    for batch in dataset.batches(batch_size):
+    for batch in prefetch(batches, depth=prefetch_depth):
         n = batch.n_valid
         pending.append((*to_host_async(encode_fn(batch.tokens)[:n]),
                         batch.ids[:n]))
         if len(pending) > _IN_FLIGHT:
             fetch()
         n_batches += 1
+        n_done += n
         if log_every and n_batches % log_every == 0:
-            n_done = n_batches * batch_size
             logger.info("encoded %d seqs (%.0f seq/s)", n_done,
                         n_done / (time.perf_counter() - t0))
     while pending:
@@ -86,3 +160,72 @@ def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
     logger.info("encoded %d sequences in %.1fs (%.0f seq/s)", len(ids),
                 elapsed, len(ids) / max(elapsed, 1e-9))
     return embeddings, ids
+
+
+def build_index_from_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
+                             batch_size: int, out_dir: Optional[str] = None,
+                             dtype=torch.bfloat16, block_rows: int = 8192,
+                             device=None):
+    """Encode the corpus, optionally persist the embedding store, and
+    stand up the resident ``FlatIPIndex`` on ``device``."""
+    from .flat_index import FlatIPIndex
+    from .persistence import write_embeddings
+
+    embeddings, ids = encode_dataset(encode_fn, dataset, batch_size)
+    if out_dir is not None:
+        write_embeddings(out_dir, embeddings, ids)
+    return FlatIPIndex.build(embeddings, ids, dtype=dtype,
+                             block_rows=block_rows, device=device)
+
+
+def build_index_on_device(encode_fn: EncodeFn, dataset: SequenceDataset,
+                          batch_size: int, dim: int, dtype=torch.bfloat16,
+                          block_rows: int = 8192, prefetch_depth: int = 4,
+                          mesh=None, bucket_lengths=None, device=None):
+    """Encode straight into the resident index: no host round trip.
+
+    The store is preallocated on ``device`` (``encode_fn``'s device) at
+    ``n + max_batch_rows`` rows rounded up to ``block_rows``, and each
+    encoded batch is copied in place at ``offset``, its padded tail rows
+    included; the next batch's write at ``offset + n_valid`` covers them,
+    except after the final batch, where they stay as rows with id -1
+    (masked out of every search). ``torch.int8`` quantizes each batch on
+    the device (``quantize_rows``); rows never written keep code 0 and
+    scale 1.0. Row order is the stream's: length-grouped with
+    ``bucket_lengths``, identity on the id map."""
+    from .flat_index import FlatIPIndex, _pad_rows, quantize_rows
+
+    if mesh is not None:
+        raise NotImplementedError("a sharded on-device build (mesh=...) is "
+                                  "not ported yet (ROADMAP A6); build on "
+                                  "one device")
+    dev = resolve_device(device)
+    n = len(dataset)
+    batches, max_bz, _ = _batch_stream(dataset, batch_size, bucket_lengths)
+    # every batch writes its full (possibly bucket-specific) row count, of
+    # which the tail is padding: the store covers the largest write at the
+    # largest offset (<= n)
+    n_pad = _pad_rows(max(n, 1) + max_bz, block_rows)
+    int8 = dtype == torch.int8
+    buf = torch.zeros((n_pad, dim), dtype=dtype, device=dev)
+    scales = (torch.ones((n_pad,), dtype=torch.float32, device=dev)
+              if int8 else None)
+    ids_buf = np.full((n_pad,), -1, np.int64)
+    offset = 0
+    for batch in prefetch(batches, depth=prefetch_depth):
+        embs = encode_fn(batch.tokens)  # [bz, dim] on the device
+        bz = embs.shape[0]
+        with torch.inference_mode():
+            if int8:
+                codes, s = quantize_rows(embs)
+                buf[offset:offset + bz] = codes
+                scales[offset:offset + bz] = s
+            else:
+                buf[offset:offset + bz] = embs
+        ids_buf[offset:offset + batch.n_valid] = batch.ids[:batch.n_valid]
+        offset += batch.n_valid
+    if offset != n:
+        raise AssertionError(f"{offset} rows encoded of {n}")
+    return FlatIPIndex.from_tensors(
+        buf, torch.from_numpy(ids_buf.astype(np.int32)).to(dev), scales,
+        block_rows=block_rows)

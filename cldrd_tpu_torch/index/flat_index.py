@@ -40,7 +40,11 @@ def quantize_rows(c):
     even). Takes numpy or torch rows and answers in kind; byte-identical
     to the reference's. Returns ``(codes int8 [N, D], scales fp32 [N])``."""
     if isinstance(c, torch.Tensor):
-        s = c.abs().amax(1).to(torch.float32) / 127.0
+        # divide by a tensor: on CUDA a Python-scalar divisor is applied
+        # as a product with its reciprocal, which rounds some scales (and
+        # so codes) away from the reference's quotient
+        amax = c.abs().amax(1).to(torch.float32)
+        s = amax / torch.full_like(amax, 127.0)
         s = torch.where(s == 0.0, torch.ones_like(s), s)
         codes = torch.round(c.to(torch.float32) / s[:, None]).to(torch.int8)
         return codes, s
@@ -275,6 +279,87 @@ class FlatIPIndex(HostIdCacheMixin):
             write_embeddings(out_dir,
                              self.embeddings[valid].float().cpu().numpy(),
                              ids, rows_per_shard=rows_per_shard)
+
+    # ------------------------------------------------- FAISS read surface
+
+    def _id_to_row(self, ids: np.ndarray) -> np.ndarray:
+        """External ids -> row positions via a cached sorted-id map
+        (binary search; a dict at 8.8M ids would cost ~600 MB). Raises
+        ``KeyError`` on unknown or removed ids."""
+        maps = getattr(self, "_id_row_map_cache", None)
+        if maps is None:
+            host = self._host_ids()
+            rows = np.flatnonzero(host >= 0).astype(np.int64)
+            order = np.argsort(host[rows], kind="stable")
+            maps = (host[rows][order], rows[order])  # (sorted ids, rows)
+            self._id_row_map_cache = maps
+        sorted_ids, sorted_rows = maps
+        pos = np.searchsorted(sorted_ids, ids)
+        bad = (pos >= len(sorted_ids)) | (sorted_ids[np.minimum(
+            pos, len(sorted_ids) - 1)] != ids)
+        if bad.any():
+            raise KeyError(
+                f"ids not in index: {np.asarray(ids)[bad][:10].tolist()}")
+        return sorted_rows[pos]
+
+    def reconstruct(self, ids) -> np.ndarray:
+        """The STORED vectors of external ``ids`` as fp32 [len(ids), D]
+        (FAISS ``reconstruct``/``reconstruct_batch``; a scalar id returns
+        [D]). int8 stores dequantize ``codes * scale``: the vectors search
+        scores against, not the originals before quantization. Raises
+        ``KeyError`` for unknown or removed ids."""
+        scalar = np.ndim(ids) == 0
+        idv = np.atleast_1d(np.asarray(ids, np.int64))
+        rows = torch.from_numpy(self._id_to_row(idv)).to(self.device)
+        out = self.embeddings[rows].float()
+        if self.embeddings.dtype == torch.int8:
+            out = out * self.row_scales[rows][:, None]
+        out = out.cpu().numpy()
+        return out[0] if scalar else out
+
+    def range_search(self, queries, radius: float, k_start: int = 1024,
+                     max_passes: Optional[int] = 8
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All hits with inner product STRICTLY above ``radius`` (FAISS
+        ``range_search`` IP semantics), exact, in FAISS's CSR convention:
+        ``(lims [B+1], scores, ids)`` with query q's hits at
+        ``[lims[q]:lims[q+1]]``, sorted by score descending (FAISS leaves
+        them unsorted).
+
+        Exact top-k runs at doubling depths (``k_start``, 2*k_start, ...)
+        until every query's k-th score has fallen to ``radius`` or the
+        corpus is exhausted, then the hits are filtered on the host; a
+        query with at most ``k_start`` hits pays one search. After
+        ``max_passes`` searches (default 8: depth 128 * k_start) it
+        RAISES rather than truncate, naming the radius; ``max_passes=None``
+        searches as deep as the corpus."""
+        q = np.asarray(queries)
+        n_rows = len(self._host_ids())  # padded size; -inf beyond corpus
+        k = min(max(int(k_start), 1), n_rows)
+        passes = 0
+        while True:
+            scores, ids = self.search(q, k)
+            passes += 1
+            valid = ids >= 0
+            # deeper hits are possible only if some query's k-th kept slot
+            # is a real row still scoring above radius
+            if k >= n_rows or not np.any(valid[:, -1]
+                                         & (scores[:, -1] > radius)):
+                break
+            if max_passes is not None and passes >= max_passes:
+                raise RuntimeError(
+                    f"range_search(radius={radius!r}) still unsaturated "
+                    f"after {passes} passes (depth {k} of {n_rows} rows): "
+                    "the radius matches a large fraction of the corpus. "
+                    "Raise k_start, raise max_passes, or pass "
+                    "max_passes=None to search exhaustively.")
+            k = min(k * 2, n_rows)
+        keep = valid & (scores > radius)
+        lims = np.zeros(len(q) + 1, np.int64)
+        np.cumsum(keep.sum(axis=1), out=lims[1:])
+        # rows are already score-descending from search()
+        return (lims, scores[keep].astype(np.float32),
+                ids[keep].astype(np.int64))
 
     # ------------------------------------------------------------ search
 

@@ -40,12 +40,14 @@ repeats the reference kernel's arithmetic: a wrapper takes it for CPU
 tensors only, and on a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches by name, ``ENTRY_LAUNCHES`` by the C
 entry point they went through, ``ROUTE_LAUNCHES`` by (name, entry point):
-K3 and K5 share the tiled and sm90 forwards.
+K3 and K5 share the tiled and sm90 forwards. ``SHAPE_LAUNCHES`` counts
+the forwards by (name, entry point, B, L): the length buckets' shapes.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -73,6 +75,7 @@ ROUTE_LAUNCHES = {(name, entry): 0 for name, entries in (
     ("infer", ("attn_fwd_launch", "attn_fwd_sm90_launch",
                "attn_infer_short_launch", "attn_infer_d32_launch")))
     for entry in entries}
+SHAPE_LAUNCHES: Counter = Counter()
 
 _M32 = 0xFFFFFFFF
 # the reference's int32 constants -1028477379 and -2048144789 as uint32
@@ -379,6 +382,7 @@ def _launch_fwd(q, k, v, mask, seed, dropout_p, segment_ids, with_stats,
     LAUNCHES[name] += 1
     ENTRY_LAUNCHES[entry] += 1
     ROUTE_LAUNCHES[(name, entry)] += 1
+    SHAPE_LAUNCHES[(name, entry, b, length)] += 1
     return out, (None if stats is None else (stats, ov))
 
 

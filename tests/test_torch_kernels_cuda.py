@@ -1053,3 +1053,164 @@ def test_extract_topk_sm90_equals_plain_on_every_launch(c_dtype, rounds,
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+# the length buckets' shapes (data/bucketing.py's default ladder at batch
+# 512, L 256 for the passage tower, head_dim 64, and batch 128, L 256 for
+# the MiniLM teacher, head_dim 32): (B, L, head_dim, route)
+_LADDER = ([(512 * 256 // n, n, 64, "short" if n <= 64 else "sm90")
+            for n in (32, 64, 128, 256)]
+           + [(128 * 256 // n, n, 32, "d32") for n in (32, 64, 128, 256)])
+_ROUTE_ENTRY = {"short": "attn_infer_short_launch",
+                "sm90": "attn_fwd_sm90_launch",
+                "d32": "attn_infer_d32_launch"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,d,route", _LADDER,
+                         ids=[f"{b}x{n}_d{d}" for b, n, d, _ in _LADDER])
+@pytest.mark.parametrize("form", ["normal", "q0", "k0"])
+def test_infer_at_the_bucket_ladder_equals_plain(b, length, d, route, form):
+    """K5 at every length bucket's shape, through the route
+    _kernel_route gives it, with a bucket's padding: rows past the next
+    shorter bucket, one row with no real key and the last eighth of the
+    batch all padding (a bucket's partial last batch). Within 2e-2 of
+    the plain version on normal data, EQUAL on the exact forms."""
+    dev = _device()
+    assert att._kernel_route(torch.bfloat16, length, d, "infer") == route
+    g = torch.Generator(device=dev).manual_seed(length + d)
+    shape = (b, length, 12, d)
+    n = torch.randint(length // 2 + 1, length + 1, (b, 1), generator=g,
+                      device=dev)
+    mask = (torch.arange(length, device=dev)[None] < n).int()
+    mask[1] = 0
+    mask[b - b // 8:] = 0
+    if form == "normal":
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+    else:
+        q, k, v = _exact_forms(dev, shape, form)
+    before = att.ROUTE_LAUNCHES[("infer", _ROUTE_ENTRY[route])]
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert att.ROUTE_LAUNCHES[("infer", _ROUTE_ENTRY[route])] == before + 1
+    assert torch.isfinite(out.float()).all()
+    if form == "normal":
+        assert _rel(out, ref) <= 2e-2
+    else:
+        assert ref.abs().max() > 0 and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_token_ids_widen_on_the_card():
+    """The encoder's host-to-card token copy: ids packed in two bytes
+    (uint16 sent as int16) come back on the card as the same ids, those
+    at and above 32,768 included; the mask in one byte."""
+    import numpy as np
+
+    from cldrd_tpu_torch.index.builder import _to_device, compact_tokens
+
+    dev = _device()
+    ids = np.array([[0, 1, 32_767, 32_768, 40_000, 65_535]], np.int32)
+    mask = np.array([[1, 1, 1, 0, 1, 0]], np.int32)
+    packed = compact_tokens({"input_ids": ids, "attention_mask": mask})
+    assert packed["input_ids"].dtype == np.uint16
+    got_ids = _to_device(packed["input_ids"], dev)
+    got_mask = _to_device(packed["attention_mask"], dev)
+    assert got_ids.device.type == "cuda" and got_ids.dtype == torch.int64
+    assert got_ids.cpu().numpy().tolist() == ids.tolist()
+    assert got_mask.cpu().numpy().tolist() == mask.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder", [None, ()], ids=["flat", "bucketed"])
+def test_build_index_on_device_int8_equals_build_quantized(ladder):
+    """build_index_on_device quantizes each batch on the card: its rows,
+    scales, ids and searches EQUAL FlatIPIndex.build_quantized over the
+    same embeddings quantized on the host; rows never written keep id -1
+    and a finite scale."""
+    import numpy as np
+
+    from cldrd_tpu_torch.data.sequence_dataset import SequenceBatch
+    from cldrd_tpu_torch.index import (
+        FlatIPIndex,
+        build_index_on_device,
+        quantize_rows,
+    )
+
+    dev = _device()
+    rng = np.random.default_rng(0)
+    n, d, width = 3000, 128, 64
+    lens = rng.integers(1, width + 1, n)
+    mask = (np.arange(width)[None] < lens[:, None]).astype(np.int32)
+    tokens = rng.integers(1, 30_000, (n, width)).astype(np.int32) * mask
+    table = torch.randn(30_000, d, generator=torch.Generator().manual_seed(1))
+
+    class Corpus:
+        max_length = width
+
+        def __len__(self):
+            return n
+
+        def batches(self, bz):
+            for s in range(0, n, bz):
+                nv = min(bz, n - s)
+                t = np.zeros((bz, width), np.int32)
+                m = np.zeros((bz, width), np.int32)
+                i = np.full((bz,), -1, np.int64)
+                t[:nv], m[:nv] = tokens[s:s + nv], mask[s:s + nv]
+                i[:nv] = np.arange(s, s + nv) * 3
+                yield SequenceBatch({"input_ids": t, "attention_mask": m},
+                                    i, nv)
+
+    w = table.to(dev)
+
+    def encode(tok):  # a mean of token rows; all-padding rows give zeros
+        ids = torch.from_numpy(tok["input_ids"]).to(dev).long()
+        m = torch.from_numpy(tok["attention_mask"]).to(dev).float()
+        return (w[ids] * m[..., None]).sum(1) / m.sum(1, keepdim=True).clamp(
+            min=1)
+
+    index = build_index_on_device(encode, Corpus(), 256, d,
+                                  dtype=torch.int8, block_rows=2048,
+                                  bucket_lengths=ladder, device=dev)
+    order, embs = [], []
+    from cldrd_tpu_torch.index.builder import _batch_stream
+
+    for batch in _batch_stream(Corpus(), 256, ladder)[0]:
+        embs.append(encode(batch.tokens)[:batch.n_valid].cpu().numpy())
+        order.append(batch.ids[:batch.n_valid])
+    embs, order = np.concatenate(embs), np.concatenate(order)
+    codes, scales = quantize_rows(embs)
+    ref = FlatIPIndex.build_quantized(codes, scales, order, block_rows=2048,
+                                      device=dev)
+    assert torch.equal(index.row_ids[:n], ref.row_ids[:n])
+    assert bool((index.row_ids[n:] == -1).all())
+    assert torch.equal(index.embeddings[:n], ref.embeddings[:n])
+    assert torch.equal(index.row_scales[:n], ref.row_scales[:n])
+    assert bool(torch.isfinite(index.row_scales).all())
+    q = torch.randn(128, d, generator=torch.Generator().manual_seed(2))
+    got, want = index.search(q, 100), ref.search(q, 100)
+    assert np.array_equal(got[1], want[1])
+    assert np.array_equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_quantize_rows_on_the_card_equals_numpy():
+    """Per-row int8 quantization on the card gives the host's (numpy)
+    codes and scales bit for bit: the scale is a true quotient (a
+    Python-scalar divisor is applied on CUDA as a product with its
+    reciprocal, which rounds some scales, and so codes, otherwise)."""
+    import numpy as np
+
+    from cldrd_tpu_torch.index import quantize_rows
+
+    dev = _device()
+    c = np.random.default_rng(3).standard_normal((65_536, 96)).astype(
+        np.float32)
+    c[7] = 0.0  # a zero row: scale 1
+    codes, scales = quantize_rows(torch.from_numpy(c).to(dev))
+    want_codes, want_scales = quantize_rows(c)
+    assert np.array_equal(scales.cpu().numpy(), want_scales)
+    assert np.array_equal(codes.cpu().numpy(), want_codes)

@@ -158,8 +158,12 @@ def test_cli_rejects_flags_of_later_slices():
     args = t_index.build_parser().parse_args(
         ["--collection", "c", "--out", "o", "--ivf-nlist", "8"])
     assert args.ivf_nlist == 8
-    for argv in (["--devices", "2"],
-                 ["--token-cache", "c"], ["--bucket-lengths", "32"]):
-        with pytest.raises(SystemExit):
-            t_index.build_parser().parse_args(
-                ["--collection", "c", "--out", "o", *argv])
+    # the token cache and length buckets came with the host-runtime slice
+    args = t_index.build_parser().parse_args(
+        ["--collection", "c", "--out", "o", "--token-cache", "tc",
+         "--bucket-lengths"])
+    assert (args.token_cache, args.bucket_lengths) == ("tc", [])
+    # multi-device encode stays with the multi-GPU slice
+    with pytest.raises(SystemExit):
+        t_index.build_parser().parse_args(
+            ["--collection", "c", "--out", "o", "--devices", "2"])

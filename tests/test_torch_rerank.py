@@ -343,8 +343,11 @@ def test_reranking_dataset_batches_equal(mode):
         _assert_batches_equal(ours.batches_packed(8), ref.batches_packed(8))
     else:
         _assert_batches_equal(ours.batches(8), ref.batches(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        next(ours.batches_bucketed(8))
+    # length buckets, ported since: the same batches as the reference's,
+    # on an explicit ladder and on the default one
+    for ladder in ([8, 12], None):
+        _assert_batches_equal(ours.batches_bucketed(8, ladder),
+                              ref.batches_bucketed(8, ladder))
 
 
 def test_reranking_dataset_from_run_file(tmp_path):
@@ -754,10 +757,14 @@ def test_cli_create_training_data_refuses_unported(cli_files, tmp_path):
     argv = ["--candidates-run", f["cands"], "--queries", f["queries"],
             "--passages", f["passages"], "--out-prefix", str(tmp_path / "x"),
             "--model-size", "tiny", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t_ctd.main([*argv, "--bucket-lengths", "32"])
+    # --bucket-lengths is ported (tests/test_torch_host_runtime.py); the
+    # reference's refusal of --pack-pairs with the bert teacher stays,
+    # with buckets asked for too
     with pytest.raises(SystemExit):
         t_ctd.main([*argv, "--teacher-arch", "bert", "--pack-pairs"])
+    with pytest.raises(SystemExit):
+        t_ctd.main([*argv, "--teacher-arch", "bert", "--pack-pairs",
+                    "--bucket-lengths", "32"])
     with pytest.raises(SystemExit):
         t_ctd.main([*argv, "--teacher-arch", "distilbert", "--arch", "bert"])
 
