@@ -161,20 +161,57 @@ Phases (each raises on any failure; the script then exits non-zero):
    and scores to the teacher scored directly on the same pairs at the
    daemon's batch shape.
 
-Phases 3-7 drive the port's five paths (search, train, pipeline,
-teacher, serve). Kernel launch counts are set to 0 just before each and
+8. multi: the multi-device paths and the encoder's options, over every
+   visible GPU (with one, every sharded path runs on two shards of
+   cuda:0, logged). The 8,847,360 x 768 int8 store in shards EQUALs the
+   one-device index on integer-valued queries (B=512, k=1000; one K1
+   launch a shard a batch), QPS of both beside each other; the portable
+   route on the sharded store (a ragged batch, one
+   search_batched(batch_size=2048) batch) EQUALs too, K2 per shard. The
+   serve phase's int8 IVF store in shards EQUALs the one-device search at
+   nprobe 32 and at full probe (one K6 launch a shard a search), and a
+   cli.serve --ivf --shards 0 daemon answers a burst, each answer EQUAL
+   to its direct search. build_index_on_device(mesh=) from the
+   pipeline's token caches (bf16, int8, flat, bucketed) EQUALs the
+   one-device build at a device's share of the batch, by id; cli.index
+   --devices 0 and cli.retrieve --shards 0 write the pipeline's run file
+   byte for byte. Four flat train steps on a torch.distributed group of
+   spawned ranks (NCCL, one a GPU; with one GPU, two gloo ranks share
+   cuda:0), in three jobs: bf16 at dropout 0.1 (K3/K4 on every rank),
+   bf16 at dropout 0 and fp32 with the einsum attention at dropout 0. The
+   ranks' losses EQUAL each other's, and are held to one process from the
+   same seed: fp32 within 1e-4 (reduction order), bf16 at dropout 0
+   within 3e-2 (rounding), and both bf16 jobs within 1e-3 of one process
+   that draws the ranks' masks (each rank draws its own; the plain one
+   process's distance at dropout 0.1 is printed beside the spread of its
+   losses over other dropout streams); ms a step of each. With one GPU a
+   one-rank NCCL group in process gives one process's losses, EQUAL.
+   One flat step with remat
+   off, 'full' and 'dots' (dropout 0.1): ms, peak memory and K3 launches
+   a step (doubled under remat), the loss EQUAL and the grads within
+   1e-3 (relative L2); one full-remat step at bz 32 x nway 30 (960
+   passages of 256) prints its peak memory. The 32,768 passages encoded
+   with fused_qkv (K5) and softmax_in_compute_dtype (einsum attention)
+   keep every row's cosine to the default store at 0.999 or more, with
+   passages/s beside the default's.
+
+Phases 3-8 drive the port's six paths (search, train, pipeline,
+teacher, serve, multi). Kernel launch counts are set to 0 just before each and
 read just after it: a kernel its path must reach with no launch there
 fails the run, every K1 and K2 launch of a window must have gone through
 the Hopper entry points (extract_topk_sm90_launch,
 fused_binmax_sm90_launch), and every K5 launch through those its path
 names (K5_ENTRIES: attn_infer_short_launch and the sm90 forward on the
-train and pipeline paths, attn_infer_d32_launch too on the teacher and
-serve paths); K5 is also counted by (entry point, B, L)
-(ops/attention.py::SHAPE_LAUNCHES). The kernels line sums the five
+train, pipeline and multi paths, attn_infer_d32_launch too on the
+teacher and serve paths); K5 is also counted by (entry point, B, L)
+(ops/attention.py::SHAPE_LAUNCHES). The kernels line sums the six
 windows, K5's launches by shape included. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
 start-up and the requests they answer), counted the same way.
+With --data-parallel OUT_JSON the script builds the kernels and runs
+only the multi phase's data-parallel check, over every visible GPU (the
+check a several-GPU machine adds; its launches are counted apart).
 With --compare-routes OUT_JSON the script builds the kernels and runs
 only phase_routes: the train phase's curriculum through each
 train-attention route (sm90, tiled, plain) from one seed, to show
@@ -3311,6 +3348,10 @@ def phase_serve(ctx):
     # MiniLM teacher resident (K1, then K5 on attention_infer_d32.cu)
     res["rerank"] = _serve_rerank(ctx, own)
 
+    # the int8 IVF companion stays for the multi phase (the PQ build
+    # below writes over <store>/ivf)
+    shutil.copytree(os.path.join(store, "ivf"),
+                    os.path.join(WORK, "multi_ivf"))
     # --- IVFPQ (SERVE_PQ_M x 4-bit) + exact refine over the flat disk store
     with _counted(own):
         lines, t_pq = _call_cli(cli_index.main, [
@@ -3335,7 +3376,6 @@ def phase_serve(ctx):
         f"refine x4 daemon: {len(sent)} requests, every answer EQUAL to "
         "RefinedIndex.search of its query embeddings")
     ctx["serve"] = res
-    shutil.rmtree(WORK, ignore_errors=True)
     return own
 
 
@@ -3426,6 +3466,726 @@ def _serve_rerank(ctx, own):
 
 
 # ------------------------------------------- train-attention route study
+
+# ------------------------------------------------------------- multi phase
+
+MULTI_SEED_OFFSET = 3       # the multi phase's own store generator
+MULTI_TIMED_BATCHES = 16    # B=512 batches in each QPS window
+MULTI_DP_STEPS = 4          # data-parallel flat steps
+# the data-parallel jobs: (name, attention_impl, compute dtype, dropout)
+DP_JOBS = (("bf16_p0.1", "pallas", "bfloat16", 0.1),
+           ("bf16_p0", "pallas", "bfloat16", 0.0),
+           ("fp32_p0", "xla", "float32", 0.0))
+MULTI_DP_RTOL = 1e-4        # fp32 losses: reduction order
+# bf16 bounds from readings on H100s (PERF.md), two gloo ranks on one
+# card and four NCCL ranks on four:
+MULTI_DP_ROUND_RTOL = 3e-2  # dropout 0 against one process: read 3.97e-3
+                            # (2 ranks) and 1.18e-2 (4: rows of 2)
+MULTI_DP_SAME_RTOL = 1e-3   # one process with the ranks' masks: read 0
+MULTI_DP_STREAMS = (1, 2)   # one process's other dropout streams
+DP_RANKS_ONE_GPU = 2        # ranks sharing cuda:0 (gloo) on one GPU
+MULTI_GRAD_TOL = 1e-3       # remat's grads: ||g - g0|| / ||g0||
+WIDE_BZ = 32                # the remat step at bz 32 x nway 30
+OPTION_COS = 0.999          # min row cosine of an option's store
+
+
+def _base_config(**overrides):
+    """DistilBERT-base, the train phase's model, with ``overrides``."""
+    from cldrd_tpu_torch.models import DistilBertConfig
+
+    return DistilBertConfig(**overrides)
+
+
+def _multi_mesh(ctx):
+    """Every visible GPU; with one, the shards repeat cuda:0 (the sharded
+    code paths on one card)."""
+    from cldrd_tpu_torch.parallel import CORPUS_AXIS, Mesh, make_mesh
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        return make_mesh(n, CORPUS_AXIS, ctx["dev"].type)
+    log("[multi] one GPU: every sharded path runs on two shards of "
+        f"cuda:0, and data-parallel training on {DP_RANKS_ONE_GPU} gloo "
+        "ranks that share it")
+    return Mesh((ctx["dev"], ctx["dev"]), CORPUS_AXIS)
+
+
+def _k_count(name):
+    return read_launches()[name]
+
+
+def _multi_search(ctx, mesh):
+    """The 8.8M int8 store in mesh.size shards against the same store on
+    one device: EQUAL on integer-valued queries (ids and scores), one K1
+    launch per shard per batch; QPS of both on normal queries; the
+    portable route (a ragged batch, one search_batched(batch_size=2048)
+    batch) EQUAL too, K2 per shard."""
+    from cldrd_tpu_torch.index import FlatIPIndex
+    from cldrd_tpu_torch.search import mips
+
+    dev = ctx["dev"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ctx["seed"] + MULTI_SEED_OFFSET)
+    codes = torch.randint(-127, 128, (N_FULL, D), generator=gen, device=dev,
+                          dtype=torch.int8)
+    scales = (torch.rand(N_FULL, generator=gen, device=dev) + 0.5) / 127
+    ids = torch.arange(N_FULL, dtype=torch.int32, device=dev)
+    one = FlatIPIndex.from_tensors(codes, ids, scales)
+    sharded = FlatIPIndex.from_tensors(codes, ids, scales, mesh=mesh)
+    rng = np.random.default_rng(ctx["seed"] + MULTI_SEED_OFFSET)
+    q_int = rng.integers(-8, 9, (SEARCH_BATCH * INT_BATCHES, D)).astype(
+        np.float32)
+    q_normal = rng.standard_normal(
+        (SEARCH_BATCH * MULTI_TIMED_BATCHES, D)).astype(np.float32)
+    res = {"shards": mesh.size}
+    k1 = _k_count("extract_topk")
+    si, ii = sharded.search_batched(q_int, K, batch_size=SEARCH_BATCH)
+    k1 = _k_count("extract_topk") - k1
+    want = INT_BATCHES * mesh.size
+    if k1 != want:
+        raise AssertionError(f"the sharded search made {k1} K1 launches "
+                             f"({want} expected)")
+    res["integer_rescued"] = sharded.rescued_queries
+    oi_s, oi_i = one.search_batched(q_int, K, batch_size=SEARCH_BATCH)
+    _check_exact("sharded int8 integer", si, ii, oi_s, oi_i)
+    for tag, index in (("one", one), ("sharded", sharded)):
+        index.search_batched(q_normal[:SEARCH_BATCH], K,
+                             batch_size=SEARCH_BATCH)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, i = index.search_batched(q_normal, K, batch_size=SEARCH_BATCH)
+        res[f"{tag}_qps"] = len(q_normal) / (time.perf_counter() - t0)
+        res[f"{tag}_ids"] = i
+    if not np.array_equal(res.pop("one_ids"), res.pop("sharded_ids")):
+        raise AssertionError("sharded and one-device searches of normal "
+                             "queries differ")
+    # the portable route per shard: a ragged batch and a wide batch
+    q = torch.from_numpy(q_int[:RAGGED]).to(dev, torch.bfloat16)
+    k2 = _k_count("fused_binmax")
+    v, p, ok = mips.sharded_topk(q, sharded.embeddings, sharded.row_ids, K,
+                                 mesh, return_positions=True,
+                                 on_miss="flag",
+                                 row_scales=sharded.row_scales)
+    k2_ragged = _k_count("fused_binmax") - k2
+    v1, p1, ok1 = mips.topk_binmax(q, codes, ids, K, return_positions=True,
+                                   on_miss="flag", row_scales=scales)
+    both = (ok & ok1).cpu().numpy()
+    _check_exact("sharded ragged portable", v.cpu().numpy()[both],
+                 p.cpu().numpy()[both], v1.cpu().numpy()[both],
+                 p1.cpu().numpy()[both])
+    k2 = _k_count("fused_binmax")
+    ws, wi = sharded.search_batched(q_int[:WIDE_BATCH], K,
+                                    batch_size=WIDE_BATCH)
+    k2_wide = _k_count("fused_binmax") - k2
+    ows, owi = one.search_batched(q_int[:WIDE_BATCH], K,
+                                  batch_size=WIDE_BATCH)
+    _check_exact("sharded wide portable", ws, wi, ows, owi)
+    if k2_ragged < mesh.size or k2_wide < mesh.size:
+        raise AssertionError(f"the portable route made {k2_ragged} and "
+                             f"{k2_wide} K2 launches over {mesh.size} "
+                             "shards")
+    res.update(k1_launches_integer=k1, k2_ragged=k2_ragged,
+               k2_wide=k2_wide, ragged_certified=float(both.mean()))
+    log(f"[multi] exact search, {N_FULL} x {D} int8 in {mesh.size} shards: "
+        f"{len(q_int)} integer-valued queries EQUAL to the one-device "
+        f"index ({k1} K1 launches, one a shard a batch; "
+        f"{res['integer_rescued']} re-scanned); QPS (B="
+        f"{SEARCH_BATCH}, k={K}) sharded {res['sharded_qps']:.1f} vs one "
+        f"device {res['one_qps']:.1f}; portable route: ragged B={RAGGED} "
+        f"({k2_ragged} K2 launches, {both.mean():.4f} certified, EQUAL) and "
+        f"search_batched(batch_size={WIDE_BATCH}) ({k2_wide} K2 launches, "
+        "EQUAL)")
+    del one, sharded, codes, scales, ids
+    torch.cuda.empty_cache()
+    return res
+
+
+def _multi_ivf(ctx, mesh, ivf_dir):
+    """The serve phase's int8 IVF store in mesh.size shards EQUAL to the
+    one-device IVFIndex at nprobe 32 and at full probe (one K6 launch a
+    shard a search); then cli.serve --ivf --shards 0 answers a burst,
+    each answer EQUAL to the daemon's direct search."""
+    from cldrd_tpu_torch.index import IVFIndex
+
+    one = IVFIndex.load(ivf_dir, dtype=torch.int8, device=ctx["dev"])
+    sharded = IVFIndex.load(ivf_dir, dtype=torch.int8, mesh=mesh)
+    rng = np.random.default_rng(ctx["seed"] + 4)
+    res = {"n_buckets": sharded.n_buckets, "n_real": sharded.n_real}
+    for nprobe in (SERVE_NPROBE, sharded.n_real):
+        for b in (1, 8):
+            q = rng.standard_normal((b, D)).astype(np.float32)
+            k6 = _k_count("ivf_probe")
+            s, i = sharded.search(q, K, nprobe=nprobe)
+            k6 = _k_count("ivf_probe") - k6
+            s1, i1 = one.search(q, K, nprobe=nprobe)
+            if not (np.array_equal(s, s1) and np.array_equal(i, i1)):
+                raise AssertionError(f"sharded IVF at nprobe {nprobe}, B={b}"
+                                     " differs from the one-device search")
+            if k6 != mesh.size:
+                raise AssertionError(f"a sharded IVF search made {k6} K6 "
+                                     f"launches over {mesh.size} shards")
+    del one, sharded
+    rng = np.random.default_rng(ctx["seed"] + 5)
+    with open(ctx["corpus"]["queries"]) as f:
+        texts = [line.rstrip("\n").split("\t", 1)[1] for line in f]
+    sent = [[texts[j] for j in rng.integers(0, len(texts), m)]
+            for m in rng.integers(1, 9, SERVE_REQUESTS)]
+    dmn = _Daemon(["--index", ivf_dir, "--ivf", "--hbm-dtype", "int8",
+                   "--shards", "0", "--checkpoint", ctx["trained_ckpt"],
+                   "--max-length", str(TRAIN_LQ)])
+    try:
+        index = dmn.svc.index
+        if index.mesh is None or index.mesh.size != torch.cuda.device_count():
+            raise AssertionError("--shards 0 did not shard over every GPU")
+        k6 = _k_count("ivf_probe")
+        answers, _, wall = _send(dmn.url, sent, SERVE_CLIENTS)
+        k6 = _k_count("ivf_probe") - k6
+        nq = _check_served("sharded ivf", dmn, sent, answers)
+        searches = sum(len(p["calls"]) for p in dmn.passes)
+    finally:
+        dmn.close()
+    if k6 < searches * index.mesh.size:
+        raise AssertionError(f"the --shards 0 daemon's {searches} searches "
+                             f"made {k6} K6 launches")
+    res["daemon"] = {"requests": len(sent), "queries": nq,
+                     "qps": nq / wall, "start_s": dmn.start_s,
+                     "shards": index.mesh.size}
+    log(f"[multi] IVF int8 ({res['n_real']} buckets, padded to "
+        f"{res['n_buckets']}) in {mesh.size} shards EQUAL to one device at "
+        f"nprobe {SERVE_NPROBE} and full probe, B=1 and 8, one K6 launch a "
+        f"shard a search; cli.serve --ivf --shards 0 "
+        f"({index.mesh.size} shard(s)): {len(sent)} requests, {nq} "
+        f"queries, every answer EQUAL to its direct search")
+    return res
+
+
+def _by_id(index):
+    """(ids, rows, scales) of a flat index's real rows, sorted by id."""
+    from cldrd_tpu_torch.parallel import Sharded
+
+    ids = index._host_ids()
+    keep = np.flatnonzero(ids >= 0)
+    order = keep[np.argsort(ids[keep], kind="stable")]
+
+    def rows(x):
+        if x is None:
+            return None
+        if isinstance(x, Sharded):
+            return x.take(order)
+        return x[torch.from_numpy(order).to(x.device)]
+
+    return ids[order], rows(index.embeddings), rows(index.row_scales)
+
+
+def _multi_builds(ctx, mesh):
+    """build_index_on_device(mesh=) from the pipeline's token caches
+    (bf16 and int8, flat and bucketed) against the one-device build at a
+    device's share of the batch: the same ids and EQUAL rows and scales,
+    by id. Then cli.index --devices 0 (512 rows a device) and
+    cli.retrieve --shards 0 write the pipeline's run file again."""
+    from cldrd_tpu_torch.cli import index as cli_index
+    from cldrd_tpu_torch.cli import retrieve as cli_retrieve
+    from cldrd_tpu_torch.cli.common import load_dual_encoder
+    from cldrd_tpu_torch.data import TokenCacheDataset
+    from cldrd_tpu_torch.index import build_index_on_device, make_encode_fn
+
+    work = os.path.join(WORK, "pipeline")
+    model = load_dual_encoder(ctx["trained_ckpt"], _pallas_model_config(),
+                              False, False, torch.bfloat16, ctx["dev"])
+    one_enc = make_encode_fn(model, "passage_embs")
+    dp_enc = make_encode_fn(model, "passage_embs", mesh=mesh)
+    per = 512 // mesh.size
+    res = {}
+    for ladder, cache in ((None, "token_cache_flat"), ((), "token_cache")):
+        ds = TokenCacheDataset(os.path.join(work, cache))
+        for dtype in (torch.bfloat16, torch.int8):
+            tag = f"{'flat' if ladder is None else 'bucketed'}_" \
+                  f"{str(dtype)[6:]}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = build_index_on_device(dp_enc, ds, 512, D, dtype=dtype,
+                                        bucket_lengths=ladder, mesh=mesh)
+            torch.cuda.synchronize()
+            t_dp = time.perf_counter() - t0
+            want = build_index_on_device(one_enc, ds, per, D, dtype=dtype,
+                                         bucket_lengths=ladder,
+                                         device=ctx["dev"])
+            gi, gr, gs = _by_id(got)
+            wi, wr, ws = _by_id(want)
+            if not (np.array_equal(gi, wi) and len(gi) == len(ds)
+                    and torch.equal(gr.cpu(), wr.cpu())
+                    and (ws is None or torch.equal(gs.cpu(), ws.cpu()))):
+                raise AssertionError(f"sharded build {tag} differs from "
+                                     "the one-device build by id")
+            res[tag] = {"build_s": t_dp, "passages_per_s": len(ds) / t_dp,
+                        "shard_rows": got.embeddings.part_rows}
+            del got, want
+    del model, one_enc, dp_enc
+    torch.cuda.empty_cache()
+    idx = os.path.join(WORK, "multi_index")
+    ndev = torch.cuda.device_count()
+    common = ["--checkpoint", ctx["trained_ckpt"], "--tokenizer", "hash",
+              "--device", "cuda", "--attention-impl", "pallas"]
+    lines, t_index = _call_cli(cli_index.main, [
+        "--collection", ctx["corpus"]["collection"], "--out", idx,
+        "--max-length", str(TRAIN_LP), "--batch-size", str(512 * ndev),
+        "--devices", "0", *common])
+    run = os.path.join(WORK, "multi_run.tsv")
+    _call_cli(cli_retrieve.main, [
+        "--index", idx, "--queries", ctx["corpus"]["queries"], "--run", run,
+        "--topk", str(K), "--max-length", str(TRAIN_LQ),
+        "--search-batch-size", str(SEARCH_BATCH), "--hbm-dtype", "bfloat16",
+        "--shards", "0", *common])
+    ref = os.path.join(work, f"run_bfloat16_{K}.tsv")
+    with open(run, "rb") as a, open(ref, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("cli.index --devices 0 + cli.retrieve "
+                                 "--shards 0 wrote another run file than "
+                                 "the pipeline's")
+    res["cli"] = {"index_s": t_index, **json.loads(lines[-1])}
+    log("[multi] sharded on-device builds from the token caches EQUAL the "
+        f"one-device builds by id (rows, scales, ids; {per} rows a device "
+        "a batch): " + "; ".join(
+            f"{k} {v['build_s']:.2f} s ({v['passages_per_s']:.1f} "
+            f"passages/s)" for k, v in res.items() if k != "cli")
+        + f"; cli.index --devices 0 ({ndev} GPU(s), "
+        f"{res['cli']['passages_per_s']:.1f} passages/s) + cli.retrieve "
+        "--shards 0 wrote the pipeline's run file byte for byte")
+    return res
+
+
+def _dp_trainer_run(small, job, world, rank, stream=None, same_masks=0):
+    """Train MULTI_DP_STEPS flat steps of ``job`` (a DP_JOBS entry) at the
+    train phase's shape, in this process as rank ``rank`` of ``world`` (no
+    group when world is 0). A single process may instead draw each step's
+    dropout from ``stream`` (another draw of the masks on the same weights
+    and data), or, with ``same_masks`` = n, compute the data-parallel step
+    of n ranks: rank r's rows of the global batch through the towers with
+    rank r's dropout stream of the step, the loss the global batch's, so
+    it draws the ranks' masks and only the order of the gradient sum
+    differs from theirs. Returns the step losses, ms a step (wall time
+    between the hooks of steps 2 on: each step's metrics are read on the
+    host, so a hook follows its step's device work) and the run's kernel
+    launches. ``small`` carries what a spawned rank needs (it re-imports
+    this module)."""
+    from cldrd_tpu_torch.data import HashTokenizer, NwayDataset
+    from cldrd_tpu_torch.models import DropoutRNG
+    from cldrd_tpu_torch.train import TrainConfig, Trainer
+    from cldrd_tpu_torch.train import trainer as trainer_mod
+
+    name, impl, dtype, dropout = job
+    model_cfg = _base_config(attention_impl=impl, dropout=dropout,
+                             attention_dropout=dropout)
+    run_folder = os.path.join(
+        small["run_folder"], f"{name}_{world}_{rank}_{stream}_{same_masks}")
+    cfg = TrainConfig(max_query_len=TRAIN_LQ, max_passage_len=TRAIN_LP,
+                      batch_size=TRAIN_BZ, label_mode="8",
+                      compute_dtype=dtype, seed=small["seed"],
+                      learning_rate=7e-6, warmup_steps=2, logging_steps=1,
+                      evaluate_steps=1000, num_train_epochs=1,
+                      experiment_name="dp", run_folder=run_folder)
+    data = NwayDataset.create_from_files(
+        small["queries"], small["collection"], small["train_file"],
+        HashTokenizer(model_cfg.vocab_size), TRAIN_LQ, TRAIN_LP, "8")
+
+    class StreamRNG(DropoutRNG):
+        def __init__(self, seed, step, device, **_):
+            super().__init__(seed, step, device, stream=stream)
+
+    class SameMasks(Trainer):
+        steps = 0
+
+        def _logits(self, batch, rng):
+            n = TRAIN_BZ // same_masks
+            q, p = [], []
+            for r in range(same_masks):
+                part = {k: {f: t[r * n:(r + 1) * n] for f, t in d.items()}
+                        for k, d in batch.items()
+                        if k in ("query", "nway_passages")}
+                rng = DropoutRNG(self.cfg.seed, self.steps, self.device,
+                                 stream=r)
+                q.append(self.model.query_embs(part["query"], rng).float())
+                p.append(self.model.nway_passage_embs(
+                    part["nway_passages"], rng).float())
+            self.steps += 1
+            return self.model.logits(torch.cat(q), torch.cat(p))
+
+    trainer = (SameMasks if same_masks else Trainer)(
+        cfg, model_cfg, device=small["device"])
+    if trainer.distributed != (world > 0):
+        raise AssertionError("the trainer did not see its process group")
+    if not world:
+        # a reference run: its end-of-training checkpoint is not read
+        trainer._save = lambda step, epoch: None
+    losses, hooks = [], []
+
+    def hook(step, m):
+        hooks.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    before = read_launches()
+    if stream is not None:
+        trainer_mod.DropoutRNG = StreamRNG
+    try:
+        trainer.train(data, step_hook=hook)
+    finally:
+        trainer_mod.DropoutRNG = DropoutRNG
+    launches = {k: v - before.get(k, 0) for k, v in read_launches().items()}
+    shutil.rmtree(run_folder, ignore_errors=True)
+    gaps = np.diff(hooks)
+    return {"losses": losses, "step_ms": float(np.mean(gaps)) * 1e3,
+            "launches": launches}
+
+
+def _dp_rank(rank, world, port, small, out):
+    import torch.distributed as dist
+
+    if small["device"] == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(small["backend"],
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        runs = {job[0]: _dp_trainer_run(small, job, world, rank)
+                for job in DP_JOBS}
+        with open(f"{out}.{rank}.json", "w") as f:
+            json.dump(runs, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel(a, b):
+    """Largest relative difference of two loss curves."""
+    return float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
+
+
+def _multi_dp(ctx):
+    """MULTI_DP_STEPS flat steps at the train phase's shape on a
+    torch.distributed group of spawned ranks (NCCL, one a GPU; with one
+    GPU, DP_RANKS_ONE_GPU ranks share cuda:0 over gloo), in each job of
+    DP_JOBS. The ranks' losses EQUAL each other's (every rank computes the
+    global batch's loss); bf16 at dropout 0.1 runs K3/K4 on every rank.
+    Held to one process from the same seed: within MULTI_DP_SAME_RTOL of
+    the one process that draws the ranks' masks (bf16 jobs: only the
+    order of the gradient sum differs), fp32 with the einsum attention at
+    dropout 0 within MULTI_DP_RTOL and bf16 at dropout 0 within
+    MULTI_DP_ROUND_RTOL of the plain one process. At dropout 0.1 the
+    plain one process draws other masks: its distance is printed beside
+    the spread of its losses over MULTI_DP_STREAMS, as are ms a step of
+    each job, ranks beside one process. The ranks' launches (processes of
+    their own) are returned for the phase's window. With one GPU a
+    one-rank NCCL group in this process also trains the bf16 job at
+    dropout 0.1, EQUAL to one process."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    gpus = torch.cuda.device_count()
+    world = gpus if gpus > 1 else DP_RANKS_ONE_GPU
+    backend = "nccl" if gpus > 1 else "gloo"
+    small = {"seed": ctx["seed"], "device": ctx["dev"].type,
+             "backend": backend, "run_folder": os.path.join(WORK, "dp"),
+             "queries": ctx["corpus"]["queries"],
+             "collection": ctx["corpus"]["collection"],
+             "train_file": os.path.join(WORK, "pipeline",
+                                        "train_mode8.jsonl")}
+    t0 = time.perf_counter()
+    single = {job[0]: _dp_trainer_run(small, job, 0, 0) for job in DP_JOBS}
+    same = {job[0]: _dp_trainer_run(small, job, 0, 0, same_masks=world)
+            for job in DP_JOBS if job[2] == "bfloat16"}
+    masks = DP_JOBS[0]
+    draws = [_dp_trainer_run(small, masks, 0, 0, stream=s)["losses"]
+             for s in MULTI_DP_STREAMS]
+    t_single = time.perf_counter() - t0
+    # the ranks share the card with this process's cached blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = os.path.join(WORK, "dp_runs")
+    mp.start_processes(_dp_rank, args=(world, _free_port(), small, out),
+                       nprocs=world, start_method="spawn")
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as f:
+            ranks.append(json.load(f))
+    t_dp = time.perf_counter() - t0
+    ref = single[masks[0]]["losses"]
+    res = {"world": world, "gpus": gpus, "backend": backend,
+           "steps": MULTI_DP_STEPS, "dp_s": t_dp, "single_s": t_single,
+           "mask_draws": draws,
+           "mask_spread": max(_rel(d, ref) for d in draws), "jobs": {}}
+    window, failed = {}, []
+    if gpus == 1:
+        # the NCCL code path on one card: a one-rank group in this
+        # process, which draws one process's masks
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{_free_port()}", world_size=1, rank=0)
+        try:
+            res["nccl_one_rank"] = _dp_trainer_run(small, masks, 1, 0)
+        finally:
+            dist.destroy_process_group()
+        if res["nccl_one_rank"]["losses"] != ref:
+            failed.append(f"one NCCL rank: losses "
+                          f"{res['nccl_one_rank']['losses']} differ from "
+                          f"one process's {ref}")
+        del res["nccl_one_rank"]["launches"]
+    for name, impl, dtype, dropout in DP_JOBS:
+        runs = [r[name] for r in ranks]
+        got = runs[0]["losses"]
+        for r, run in enumerate(runs):
+            if len(run["losses"]) != MULTI_DP_STEPS:
+                failed.append(f"{name}: rank {r} took "
+                              f"{len(run['losses'])} steps")
+            elif run["losses"] != got:
+                failed.append(f"{name}: rank {r}'s losses {run['losses']} "
+                              f"differ from rank 0's {got}")
+            for k, v in run["launches"].items():
+                window[k] = window.get(k, 0) + v
+        one = single[name]["losses"]
+        job = res["jobs"][name] = {
+            "losses": got, "single_losses": one,
+            "rel_err": _rel(got, one),
+            "step_ms": [run["step_ms"] for run in runs],
+            "single_step_ms": single[name]["step_ms"],
+            "k3_launches": [run["launches"]["attention_train_fwd"]
+                            for run in runs],
+            "k4_launches": [run["launches"]["attention_train_bwd"]
+                            for run in runs]}
+        checks = []
+        if dropout == 0.0:
+            checks.append(("one process", one, MULTI_DP_RTOL if
+                           dtype == "float32" else MULTI_DP_ROUND_RTOL))
+        if name in same:
+            job["same_masks_losses"] = same[name]["losses"]
+            job["same_masks_rel_err"] = _rel(got, same[name]["losses"])
+            checks.append(("one process with the ranks' masks",
+                           same[name]["losses"], MULTI_DP_SAME_RTOL))
+        for what, want, bound in checks:
+            if not _rel(got, want) <= bound:
+                failed.append(f"{name}: the ranks' losses {got} are "
+                              f"{_rel(got, want):.3g} from {what}'s {want} "
+                              f"(bound {bound})")
+        if dropout > 0.0 and not (min(job["k3_launches"]) > 0
+                                  and min(job["k4_launches"]) > 0):
+            failed.append(f"{name}: K3/K4 launches by rank "
+                          f"{job['k3_launches']} / {job['k4_launches']}")
+    res["rank_launches"] = window
+    log(f"[multi] data-parallel training, {world} {backend.upper()} ranks "
+        f"on {gpus} GPU(s), {MULTI_DP_STEPS} flat steps (bz {TRAIN_BZ} x "
+        f"nway {NWAY}); against one process: " + "; ".join(
+            f"{n} {v['rel_err']:.3e}"
+            + (f" (with the ranks' masks {v['same_masks_rel_err']:.3e})"
+               if "same_masks_rel_err" in v else "")
+            + f", {v['step_ms'][0]:.2f} ms a step vs "
+            f"{v['single_step_ms']:.2f}, K3/K4 by rank "
+            f"{v['k3_launches']}/{v['k4_launches']}"
+            for n, v in res["jobs"].items())
+        + f"; one process over {len(draws)} other dropout streams: "
+        f"{res['mask_spread']:.3e} ({t_dp:.1f} s ranks, {t_single:.1f} s "
+        "one process)" + (
+            f"; one NCCL rank {res['nccl_one_rank']['losses']}, "
+            f"{res['nccl_one_rank']['step_ms']:.2f} ms a step"
+            if "nccl_one_rank" in res else ""))
+    log("[multi] data-parallel losses " + json.dumps(
+        {n: {k: v[k] for k in ("losses", "single_losses",
+                               "same_masks_losses") if k in v}
+         for n, v in res["jobs"].items()} | {"mask_draws": draws}))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log("[multi] data-parallel: the ranks' losses EQUAL each other's and "
+        "within their bounds")
+    return res
+
+
+def _remat_steps(ctx):
+    """One flat step at the train phase's shape with remat off, 'full' and
+    'dots' (dropout 0.1, K3/K4): ms a step, peak memory, K3 launches a
+    step; the loss EQUAL and the grads within MULTI_GRAD_TOL of remat
+    off. Then one 'full' step at bz WIDE_BZ x nway 30: its peak memory.
+    Earlier checks' objects are collected first (a daemon's handler class
+    keeps its service in a reference cycle), so a peak holds the model,
+    its batch and the step alone; ``base_bytes`` is what was allocated
+    before the model."""
+    import dataclasses
+
+    from cldrd_tpu_torch.data import HashTokenizer, NwayDataset
+    from cldrd_tpu_torch.models import DropoutRNG, NwayDualEncoder
+    from cldrd_tpu_torch.train import TrainConfig, make_loss_fn
+    from cldrd_tpu_torch.train.trainer import batch_to_device
+
+    dev, seed = ctx["dev"], ctx["seed"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    cfg = _base_config(attention_impl="pallas")
+    model = NwayDualEncoder(cfg, dtype=torch.bfloat16).reset_parameters(
+        seed=seed)
+    model.to(dev).train()
+    params = [p for _, p in model.named_parameters()]
+    loss_fn = make_loss_fn(TrainConfig(label_mode="8"))
+    data = NwayDataset.create_from_files(
+        ctx["corpus"]["queries"], ctx["corpus"]["collection"],
+        os.path.join(WORK, "pipeline", "train_mode8.jsonl"),
+        HashTokenizer(cfg.vocab_size), TRAIN_LQ, TRAIN_LP, "8")
+
+    def set_remat(on, policy="full"):
+        for enc in (model.query_encoder, model.passage_encoder):
+            enc.config = dataclasses.replace(enc.config, remat=on,
+                                             remat_policy=policy)
+
+    def step(batch):
+        logits = model(batch["query"], batch["nway_passages"],
+                       rng=DropoutRNG(seed, 0, dev))
+        loss = loss_fn(logits, batch["labels"], batch["teacher_scores"])
+        return loss, torch.autograd.grad(loss, params, allow_unused=True)
+
+    def measured(batch):
+        step(batch)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        k3 = _k_count("attention_train_fwd")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        loss, grads = step(batch)
+        t1.record()
+        torch.cuda.synchronize()
+        return (loss.item(), grads, t0.elapsed_time(t1),
+                torch.cuda.max_memory_allocated(dev),
+                _k_count("attention_train_fwd") - k3)
+
+    batch = batch_to_device(next(data.batches(TRAIN_BZ, seed=seed)), dev)
+    res, ref = {}, None
+    for tag, on, policy in (("off", False, "full"), ("full", True, "full"),
+                            ("dots", True, "dots")):
+        set_remat(on, policy)
+        loss, grads, ms, peak, k3 = measured(batch)
+        if ref is None:
+            ref = (loss, grads)
+            err = 0.0
+        else:
+            if loss != ref[0]:
+                raise AssertionError(f"remat {tag}: loss {loss} != "
+                                     f"{ref[0]} without remat")
+            num = sum(float((g.float() - r.float()).square().sum())
+                      for g, r in zip(grads, ref[1]) if g is not None)
+            den = sum(float(r.float().square().sum())
+                      for r in ref[1] if r is not None)
+            err = (num / den) ** 0.5
+            if not err <= MULTI_GRAD_TOL:
+                raise AssertionError(f"remat {tag}: grads {err:.3g} from "
+                                     "remat off")
+        res[tag] = {"ms": ms, "peak_bytes": peak, "k3_launches": k3,
+                    "loss": loss, "grad_rel_err": err}
+        del grads
+    if res["full"]["k3_launches"] != 2 * res["off"]["k3_launches"]:
+        raise AssertionError(f"K3 launches a step: {res['off']} without "
+                             f"remat, {res['full']} with it")
+    ref = None
+    set_remat(True, "full")
+    wide = batch_to_device(next(data.batches(WIDE_BZ, seed=seed)), dev)
+    loss, grads, ms, peak, k3 = measured(wide)
+    if not np.isfinite(loss):
+        raise AssertionError(f"the wide remat step's loss is {loss}")
+    res["wide_full"] = {"ms": ms, "peak_bytes": peak, "k3_launches": k3,
+                        "passages": WIDE_BZ * NWAY, "loss": loss}
+    res["base_bytes"] = base
+    del grads, wide, batch, model
+    torch.cuda.empty_cache()
+    log(f"[multi] remat, one flat step (bz {TRAIN_BZ} x nway {NWAY}, L "
+        f"{TRAIN_LP}, dropout 0.1): "
+        + "; ".join(f"{t} {v['ms']:.2f} ms, peak {v['peak_bytes'] / 2**30:.2f}"
+                    f" GiB, {v['k3_launches']} K3 launches, grads "
+                    f"{v['grad_rel_err']:.2e} from off"
+                    for t, v in res.items() if t in ("off", "full", "dots"))
+        + f"; the loss EQUAL; full remat at bz {WIDE_BZ} x nway {NWAY} "
+        f"({WIDE_BZ * NWAY} passages of {TRAIN_LP}): "
+        f"{res['wide_full']['ms']:.2f} ms, peak "
+        f"{res['wide_full']['peak_bytes'] / 2**30:.2f} GiB; allocated "
+        f"before the model {base / 2**30:.2f} GiB")
+    return res
+
+
+def _multi_options(ctx):
+    """The 32,768 pipeline passages (the bucketed token cache) encoded
+    with fused_qkv (K5) and softmax_in_compute_dtype (the einsum
+    attention, where the option applies), each against the default
+    store of the same attention: the same ids, every row's cosine at
+    least OPTION_COS; passages/s of each."""
+    import dataclasses
+
+    from cldrd_tpu_torch.cli.common import load_dual_encoder
+    from cldrd_tpu_torch.data import TokenCacheDataset
+    from cldrd_tpu_torch.index import encode_dataset, make_encode_fn
+
+    ds = TokenCacheDataset(os.path.join(WORK, "pipeline", "token_cache"))
+    res = {}
+    for impl, option in (("pallas", "fused_qkv"),
+                         ("xla", "softmax_in_compute_dtype")):
+        stores = {}
+        for on in (False, True):
+            cfg = _base_config(attention_impl=impl, **{option: on})
+            model = load_dual_encoder(ctx["trained_ckpt"], cfg, False, False,
+                                      torch.bfloat16, ctx["dev"])
+            enc = make_encode_fn(model, "passage_embs")
+            encode_dataset(enc, ds, 512, bucket_lengths=())   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e, i = encode_dataset(enc, ds, 512, bucket_lengths=())
+            stores[on] = (e, i, len(i) / (time.perf_counter() - t0))
+            del model, enc
+        (e0, i0, r0), (e1, i1, r1) = stores[False], stores[True]
+        if not np.array_equal(i0, i1):
+            raise AssertionError(f"{option}: ids differ")
+        cos = (e0 * e1).sum(1) / (np.linalg.norm(e0, axis=1)
+                                  * np.linalg.norm(e1, axis=1))
+        if not cos.min() >= OPTION_COS:
+            raise AssertionError(f"{option}: min row cosine {cos.min()}")
+        res[option] = {"attention_impl": impl, "min_cosine": float(cos.min()),
+                       "row_dist": _row_dist(e1, e0),
+                       "passages_per_s": r1, "default_passages_per_s": r0,
+                       "bit_equal": bool(np.array_equal(e0, e1))}
+    torch.cuda.empty_cache()
+    log(f"[multi] encoder options over the {len(ds)} passages (bucketed): "
+        + "; ".join(f"{k} ({v['attention_impl']}) {v['passages_per_s']:.1f} "
+                    f"vs {v['default_passages_per_s']:.1f} passages/s, min "
+                    f"cosine {v['min_cosine']:.6f}, row dist "
+                    f"{v['row_dist']:.4f}, bit-equal {v['bit_equal']}"
+                    for k, v in res.items()))
+    return res
+
+
+def phase_multi(ctx):
+    """The multi-device paths and the encoder's options: the sharded exact
+    search, sharded IVF (and a --shards 0 daemon), sharded on-device
+    builds and the CLIs' --devices/--shards, data-parallel training over
+    NCCL (gloo ranks sharing cuda:0 with one GPU), remat off/full/dots and
+    the wide remat step, fused_qkv and softmax_in_compute_dtype encodes.
+    Returns the path's launches."""
+    mesh = _multi_mesh(ctx)
+    res = {"gpus": torch.cuda.device_count(),
+           "mesh": [str(d) for d in mesh.devices]}
+    res["search"] = _multi_search(ctx, mesh)
+    res["ivf"] = _multi_ivf(ctx, mesh, os.path.join(WORK, "multi_ivf"))
+    res["builds"] = _multi_builds(ctx, mesh)
+    res["dp"] = _multi_dp(ctx)
+    res["remat"] = _remat_steps(ctx)
+    res["options"] = _multi_options(ctx)
+    ctx["multi"] = res
+    shutil.rmtree(WORK, ignore_errors=True)
+    # the spawned ranks' launches belong to the path's window too
+    window = read_launches()
+    for k, v in res["dp"].pop("rank_launches").items():
+        window[k] = window.get(k, 0) + v
+    return window
+
 
 ROUTES = ("sm90", "tiled", "plain")
 
@@ -3970,7 +4730,8 @@ ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
 K5_ALL = ("attn_infer_short_launch", "attn_fwd_sm90_launch",
           "attn_infer_d32_launch", "attn_fwd_launch")
 K5_ENTRIES = {"train": K5_ALL[:2], "pipeline": K5_ALL[:2],
-              "teacher": K5_ALL[:3], "serve": K5_ALL[:3]}
+              "teacher": K5_ALL[:3], "serve": K5_ALL[:3],
+              "multi": K5_ALL[:2]}
 
 
 def reset_launches():
@@ -4038,6 +4799,11 @@ def main(argv=None) -> int:
                    help="instead of the smoke run: build the kernels, run "
                         "the train-attention route study (phase_routes) "
                         "and write its results to OUT_JSON")
+    p.add_argument("--data-parallel", metavar="OUT_JSON", default=None,
+                   help="instead of the smoke run: build the kernels, write "
+                        "the train phase's corpus, run the multi phase's "
+                        "data-parallel check (_multi_dp) over every visible "
+                        "GPU and write its results to OUT_JSON")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4065,6 +4831,20 @@ def main(argv=None) -> int:
             json.dump(ctx["routes"], f, indent=1)
         log(smi_line())
         return 0
+    if args.data_parallel:
+        work = os.path.join(WORK, "pipeline")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        ctx["corpus"] = _write_corpus(work, N_PIPELINE, N_QUERIES, args.seed)
+        _write_training_files(work, N_QUERIES, N_PIPELINE, args.seed)
+        reset_launches()
+        res = run("data-parallel", _multi_dp)
+        shutil.rmtree(WORK, ignore_errors=True)
+        res["card"] = smi_line()
+        with open(args.data_parallel, "w") as f:
+            json.dump(res, f, indent=1)
+        log(smi_line())
+        return 0
     run("kernels", phase_kernels)
     ctx["stores"] = run("prepare", prepare_search)
     # each path of the port runs in its own counted window: the counts are
@@ -4083,11 +4863,16 @@ def main(argv=None) -> int:
              ("attention_infer", "attention_infer_sm90",
               "attention_infer_d32")),
             ("serve", phase_serve,
-             ("ivf_probe", "extract_topk", "attention_infer_d32"))):
+             ("ivf_probe", "extract_topk", "attention_infer_d32")),
+            ("multi", phase_multi,
+             ("extract_topk", "fused_binmax", "ivf_probe",
+              "attention_train_fwd", "attention_train_bwd",
+              "attention_infer", "attention_infer_sm90"))):
         reset_launches()
         own = run(name, fn)
         # the serve phase checks its answers through the same kernels, so
-        # it counts its path's own spans apart and returns them
+        # it counts its path's own spans apart and returns them; the multi
+        # phase adds its spawned ranks' launches
         window = read_launches() if own is None else own
         log(f"[{name}] kernel launches: {window}")
         missing = [k for k in needs if window[k] <= 0]
@@ -4108,6 +4893,7 @@ def main(argv=None) -> int:
     log("results " + json.dumps({
         k: ctx.get(k) for k in ("timings", "search_layer_ms", "search",
                                 "train", "pipeline", "teacher", "serve",
+                                "multi",
                                 "k1_err", "k5_teacher_err",
                                 "attn_tight", "attn_exact_elements",
                                 "attn_model_calls",

@@ -35,26 +35,13 @@ def setup_logging(verbose: bool = True) -> None:
     )
 
 
-# fields of the reference's DistilBertConfig the port does not implement
-# yet, with their defaults; a config that sets another value raises
-UNPORTED = {"fused_qkv": False, "softmax_in_compute_dtype": False,
-            "remat": False, "remat_policy": "full"}
-
-
 def _config_overrides(spec: str) -> dict:
     """``--model-config``: a JSON file path or inline JSON, with the
-    reference's keys; the unported fields must keep their defaults."""
+    reference's keys."""
     if os.path.exists(spec):
         with open(spec) as f:
-            overrides = json.load(f)
-    else:
-        overrides = json.loads(spec)
-    for key, default in UNPORTED.items():
-        value = overrides.pop(key, default)
-        if value != default:
-            raise NotImplementedError(
-                f"model config {key}={value!r}: not ported yet")
-    return overrides
+            return json.load(f)
+    return json.loads(spec)
 
 
 def _config(arch: str, size: str, spec: Optional[str], full_bert,

@@ -15,6 +15,11 @@ with ``--eval-bucket-lengths``), the query tower encodes the queries,
 the exact top-k goes to ``curriculum_iterN.run.tsv`` and the metrics are
 appended to ``<run-folder>/curriculum_eval.tsv``. The index is freed
 before the next iteration trains.
+
+Under ``torchrun`` every iteration trains data parallel over the ranks
+(``--n-devices`` must then equal their number, or be left out); the
+evaluation runs on rank 0 while the other ranks wait at a host-side
+barrier (gloo, ``HOST_TIMEOUT``: long enough for a full corpus).
 """
 from __future__ import annotations
 
@@ -25,6 +30,11 @@ import sys
 from typing import List, Optional
 
 from cldrd_tpu_torch.data.nway_dataset import NwayDataset
+from cldrd_tpu_torch.parallel import (
+    host_group,
+    initialize_multihost,
+    is_first_host,
+)
 from cldrd_tpu_torch.train import TrainConfig, run_curriculum
 
 from .common import (
@@ -51,6 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-fmt", default="relT_most_semi_hard")
     p.add_argument("--run-folder", default="./experiments")
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel ranks to train over: must equal the "
+                        "process group's size (default: that size, 1 "
+                        "without torchrun)")
     p.add_argument("--pack-passages", action="store_true", default=None,
                    help="pack short passages into shared rows (identical "
                         "logits, token-proportional passage-tower work). "
@@ -96,6 +110,9 @@ def _make_eval_hook(args, base: TrainConfig, model_config, tokenizer):
     table_path = os.path.join(base.run_folder, "curriculum_eval.tsv")
 
     def hook(i, state, trainer):
+        if trainer.world > 1 and not is_first_host():
+            torch.distributed.barrier(group=host_group())  # rank 0 evaluates
+            return
         model = trainer.model
         index = index_lib.build_index_on_device(
             index_lib.make_encode_fn(model, "passage_embs"), passages_ds,
@@ -120,12 +137,16 @@ def _make_eval_hook(args, base: TrainConfig, model_config, tokenizer):
         if trainer.device.type == "cuda":
             torch.cuda.empty_cache()
         model.train()
+        if trainer.world > 1:
+            torch.distributed.barrier(group=host_group())
 
     return hook
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     setup_logging()
+    # a configured launch joins its group before any device work
+    initialize_multihost()
     args = build_parser().parse_args(argv)
     n_iter = len(args.training_paths)
     if not (len(args.label_modes) == len(args.learning_rates)
@@ -137,7 +158,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     base = base.replace(queries_path=args.queries,
                         passages_path=args.passages,
                         train_fmt=args.train_fmt, run_folder=args.run_folder)
-    for field in ("share_weights", "batch_size", "pack_passages"):
+    for field in ("share_weights", "batch_size", "pack_passages",
+                  "n_devices"):
         if getattr(args, field) is not None:
             base = base.replace(**{field: getattr(args, field)})
     if args.cosine:

@@ -37,6 +37,7 @@ from cldrd_tpu_torch.index.persistence import (
     read_embeddings,
     write_embeddings,
 )
+from cldrd_tpu_torch.parallel import DATA_AXIS, make_mesh
 
 from .common import (
     add_model_args,
@@ -72,6 +73,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "The same embeddings, ~token-proportional encode "
                         "time; index row order becomes length-grouped "
                         "(immaterial: identity rides on the id map)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="data-parallel encode over this many local devices "
+                        "(a replica of the model on each, the batch's rows "
+                        "split over them; 0 = all local devices). "
+                        "--batch-size must be a multiple of the count")
     p.add_argument("--token-cache", default=None,
                    help="directory for the pre-tokenized corpus cache: "
                         "built on first use, then streamed from a memmap "
@@ -173,7 +179,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         dataset = SequenceDataset.create_from_seqs_file(
             args.collection, tokenizer, args.max_length, is_query=False)
-    encode = make_encode_fn(model, "passage_embs")
+    mesh = None
+    if args.devices != 1:
+        mesh = make_mesh(args.devices, DATA_AXIS, args.device)
+        if args.batch_size % mesh.size:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be a multiple of the "
+                f"{mesh.size} devices (rows split evenly)")
+    encode = make_encode_fn(model, "passage_embs", mesh=mesh)
     t0 = time.perf_counter()
     embeddings, ids = encode_dataset(encode, dataset, args.batch_size,
                                      bucket_lengths=args.bucket_lengths)

@@ -18,6 +18,7 @@ from typing import List, Optional
 from cldrd_tpu_torch.data.sequence_dataset import SequenceDataset
 from cldrd_tpu_torch.device import dtype_from_name
 from cldrd_tpu_torch.index import encode_dataset, load_index, make_encode_fn
+from cldrd_tpu_torch.parallel import CORPUS_AXIS, make_mesh
 from cldrd_tpu_torch.search import retrieve_to_run_file
 
 from .common import (
@@ -49,6 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hbm-dtype", default="bfloat16",
                    choices=("bfloat16", "float32", "int8"),
                    help="device store dtype (int8 = per-row-scaled codes)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shard the corpus over this many local devices "
+                        "(per-shard exact top-k on each device, merged on "
+                        "the first: FAISS's IndexShards); 0 = all local "
+                        "devices")
     p.add_argument("--precision", default="default",
                    choices=("default", "high", "highest"),
                    help="'default' runs the search kernels (bf16 operands, "
@@ -70,8 +76,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.queries, tokenizer, args.max_length, is_query=True)
     encode = make_encode_fn(model, "query_embs")
     q_embs, qids = encode_dataset(encode, dataset, args.encode_batch_size)
+    mesh = None
+    if args.shards != 1:
+        mesh = make_mesh(args.shards, CORPUS_AXIS, args.device)
     index = load_index(args.index, dtype=dtype_from_name(args.hbm_dtype),
-                       precision=args.precision, device=args.device)
+                       precision=args.precision, device=args.device,
+                       mesh=mesh)
     stats = retrieve_to_run_file(index, q_embs, qids, args.run,
                                  topk=args.topk,
                                  batch_size=args.search_batch_size)

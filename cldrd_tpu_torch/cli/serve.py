@@ -48,8 +48,9 @@ The cross-encoder stage collates through
 ``RerankingDataset.from_pairs`` and ``batches(--rerank-batch-size)``,
 the offline rerank path's contract, so its scores equal
 ``cli.rerank_eval --mode cross``'s on the same pairs at that batch
-shape. Not in this port yet: ``--shards`` other than 1 (ROADMAP A6);
-the flag parses and raises.
+shape. ``--shards N`` (0 = all local devices) row-shards any tier
+(flat, IVF, IVFPQ) over the local devices; live /add and /remove need an
+unsharded index.
 """
 from __future__ import annotations
 
@@ -85,6 +86,7 @@ from cldrd_tpu_torch.index import (
     make_encode_fn,
 )
 from cldrd_tpu_torch.index.ivf_index import IVF_META_NAME
+from cldrd_tpu_torch.parallel import CORPUS_AXIS, make_mesh
 
 from .common import (
     add_model_args,
@@ -637,8 +639,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("bfloat16", "float32", "int8"),
                    help="device store dtype (int8 = per-row-scaled codes)")
     p.add_argument("--shards", type=int, default=1,
-                   help="shard the corpus over this many devices (only 1: "
-                        "multi-GPU is ROADMAP A6)")
+                   help="shard the corpus over this many local devices; "
+                        "0 = all local devices. Applies to every index "
+                        "tier (flat, IVF, IVFPQ), as FAISS shards any "
+                        "index type")
     p.add_argument("--ivf", action="store_true",
                    help="serve the IVF index at <index>/ivf (cli.index "
                         "--ivf-nlist): probe --nprobe cells per query "
@@ -722,9 +726,8 @@ def _build_reranker(args) -> Optional[Reranker]:
 
 
 def make_service(args) -> SearchService:
-    if args.shards != 1:
-        raise SystemExit(f"--shards {args.shards}: multi-GPU serving is "
-                         "ROADMAP A6, not yet ported")
+    if args.shards < 0:
+        raise SystemExit(f"--shards must be >= 0 (got {args.shards})")
     cfg = model_config_from_args(args)
     for flag, val in (("--max-length", args.max_length),
                       ("--passage-max-length", args.passage_max_length)):
@@ -746,13 +749,20 @@ def make_service(args) -> SearchService:
     model = load_dual_encoder(args.checkpoint, cfg, args.share_weights,
                               args.cosine, torch.bfloat16, args.device)
     hbm_dtype = dtype_from_name(args.hbm_dtype)
+    mesh = None
+    if args.shards != 1:
+        try:
+            mesh = make_mesh(args.shards, CORPUS_AXIS, args.device)
+        except ValueError as e:
+            raise SystemExit(f"--shards {args.shards}: {e}")
 
     def index_loader(index_dir: str):
         """Load ``index_dir`` in the daemon's startup mode: at startup and
         for POST /reload (flat/IVF, device dtype, precision, nprobe)."""
         if not use_ivf:
             return load_index(index_dir, dtype=hbm_dtype,
-                              precision=args.precision, device=args.device)
+                              precision=args.precision, device=args.device,
+                              mesh=mesh)
         # the parent store dir or the ivf dir itself
         ivf_dir = (index_dir if ivf_exists(index_dir)
                    else os.path.join(index_dir, "ivf"))
@@ -763,12 +773,14 @@ def make_service(args) -> SearchService:
             is_pq = json.load(f)["dtype"] == "pq"
         # a PQ store has one device form: --hbm-dtype does not apply
         idx = IVFIndex.load(ivf_dir, dtype=None if is_pq else hbm_dtype,
-                            precision=args.precision, device=args.device)
+                            precision=args.precision, device=args.device,
+                            mesh=mesh)
         if args.nprobe is not None:
             idx.nprobe = min(args.nprobe, idx.n_buckets)
-        logger.info("IVF%s serving: %d buckets x %d slot, nprobe=%d",
+        logger.info("IVF%s serving: %d buckets x %d slot, nprobe=%d%s",
                     "PQ" if is_pq else "", idx.n_buckets, idx.slot,
-                    idx.nprobe)
+                    idx.nprobe, "" if mesh is None else
+                    f", sharded over {mesh.size} devices")
         if args.refine_factor:
             if not index_exists(index_dir):
                 raise ValueError(

@@ -2,7 +2,11 @@
 
 Every hyperparameter is a ``TrainConfig`` field: a YAML config supplies
 defaults and flags override single fields. Runs on CUDA unless
-``--device cpu``.
+``--device cpu``. Under ``torchrun`` (one process per GPU) it joins the
+process group first and trains data parallel over its ranks
+(``--n-devices``, when given, must equal their number):
+
+    torchrun --nproc-per-node 4 -m cldrd_tpu_torch.cli.train ...
 
     python -m cldrd_tpu_torch.cli.train --queries-path q.tsv \\
         --passages-path c.tsv --training-path it1.jsonl --label-mode 8
@@ -14,6 +18,7 @@ import sys
 from typing import List, Optional
 
 from cldrd_tpu_torch.data.nway_dataset import NwayDataset
+from cldrd_tpu_torch.parallel import initialize_multihost
 from cldrd_tpu_torch.train import TrainConfig, Trainer
 
 from .common import (
@@ -55,7 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None)
     p.add_argument("--all-in-batch-neg", action="store_true", default=None)
     p.add_argument("--remat", action="store_true", default=None,
-                   help="not ported yet: raises")
+                   help="recompute each transformer block in the backward "
+                        "(torch.utils.checkpoint): less activation memory "
+                        "for wide n-way batches, at about a third more "
+                        "forward work; --model-config's remat_policy "
+                        "('full' | 'dots') picks what is kept")
     p.add_argument("--pack-passages", action="store_true", default=None,
                    help="pack short passages into shared max-passage-len "
                         "rows (segment-masked attention + position reset): "
@@ -77,6 +86,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 def main(argv: Optional[List[str]] = None) -> int:
     setup_logging()
+    # a configured launch joins its group before any device work
+    initialize_multihost()
     args = build_parser().parse_args(argv)
     if args.cosine:
         args.apply_cosine_similarity = True

@@ -1,5 +1,5 @@
 """Corpus/query encoding: text -> CLS embeddings, and index builds (port
-of ``cldrd_tpu/index/builder.py``, one device).
+of ``cldrd_tpu/index/builder.py``).
 
 Batches have a fixed shape (the ragged tail is padded; ``n_valid`` says
 how many rows are real), or, with ``bucket_lengths``, one shape per
@@ -10,9 +10,17 @@ staging and are widened there. ``encode_dataset`` copies each batch's
 embeddings to the host behind an event and waits for a batch only a few
 batches later; ``build_index_on_device`` writes them into a
 preallocated device store instead, so they never leave the card.
+
+Data parallel (``mesh``): ``make_encode_fn(..., mesh=)`` holds a replica
+of the model on each device of the mesh and encodes rows
+``[j*bz/ndev, (j+1)*bz/ndev)`` of a batch on device j, returning the
+parts as a ``parallel.Sharded``. ``encode_dataset`` concatenates them in
+row order; the sharded ``build_index_on_device`` writes each device's
+part into its own shard of the store at the same local offset.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from collections import deque
@@ -24,6 +32,7 @@ import torch
 from cldrd_tpu_torch.data.prefetch import prefetch
 from cldrd_tpu_torch.data.sequence_dataset import SequenceDataset
 from cldrd_tpu_torch.device import resolve_device, to_host_async
+from cldrd_tpu_torch.parallel.mesh import Mesh, Sharded
 
 logger = logging.getLogger(__name__)
 
@@ -91,23 +100,52 @@ def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
     return out & 0xFFFF if wide16 else out
 
 
-def make_encode_fn(model, method: str) -> EncodeFn:
+def make_encode_fn(model, method: str, mesh: Optional[Mesh] = None
+                   ) -> EncodeFn:
     """An encode closure over ``model`` (a ``NwayDualEncoder`` on its
     device) in eval mode: tokens ``{input_ids, attention_mask}`` (host
     arrays) -> fp32 embeddings [B, D] on the model's device.
 
-    ``method``: 'query_embs' or 'passage_embs'."""
+    ``method``: 'query_embs' or 'passage_embs'. ``mesh``: data-parallel
+    encode over its devices (one replica of the model each, the model's
+    own device reusing the model); a batch's rows must divide evenly and
+    the result is a ``Sharded`` [B, D]."""
     model.eval()
-    fn = getattr(model, method)
     dev = next(model.parameters()).device
+    if mesh is None:
+        fn = getattr(model, method)
 
-    def encode(tokens):
+        def encode(tokens):
+            with torch.inference_mode():
+                batch = {k: _to_device(v, dev)
+                         for k, v in compact_tokens(tokens).items()}
+                return fn(batch).float()
+
+        return encode
+    replicas = {dev: model}
+    for d in mesh.devices:
+        if d not in replicas:
+            replicas[d] = copy.deepcopy(model).to(d).eval()
+    fns = [getattr(replicas[d], method) for d in mesh.devices]
+    ndev = mesh.size
+
+    def encode_sharded(tokens):
+        tokens = compact_tokens(tokens)
+        bz = tokens["input_ids"].shape[0]
+        if bz % ndev:
+            raise ValueError(f"a batch of {bz} rows does not split over "
+                             f"{ndev} devices")
+        per = bz // ndev
+        parts = []
         with torch.inference_mode():
-            batch = {k: _to_device(v, dev)
-                     for k, v in compact_tokens(tokens).items()}
-            return fn(batch).float()
+            for j, (fn, d) in enumerate(zip(fns, mesh.devices)):
+                batch = {k: _to_device(v[j * per:(j + 1) * per], d)
+                         for k, v in tokens.items()}
+                parts.append(fn(batch).float())
+        return Sharded(parts)
 
-    return encode
+    encode_sharded.mesh = mesh
+    return encode_sharded
 
 
 def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
@@ -121,7 +159,17 @@ def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
     ``bucket_lengths``: length-bucketed encoding (a sequence of bucket
     lengths, or ``()`` for the default power-of-two ladder). Rows come
     back GROUPED BY LENGTH, not in dataset order: pair embeddings with
-    the returned ``ids``, never with the input row order."""
+    the returned ``ids``, never with the input row order.
+
+    An encode over a mesh (``make_encode_fn(..., mesh=)``) needs every
+    batch's rows to split over its devices: ``batch_multiple`` becomes
+    its device count, and ``batch_size`` must be a multiple of it."""
+    mesh = getattr(encode_fn, "mesh", None)
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch size {batch_size} is not a multiple "
+                             f"of the {mesh.size} devices")
+        batch_multiple = mesh.size
     batches, _, _ = _batch_stream(dataset, batch_size, bucket_lengths,
                                   batch_multiple)
     emb_chunks, id_chunks = [], []
@@ -130,15 +178,20 @@ def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
     n_batches = n_done = 0
 
     def fetch():
-        (embs,), done, ids = pending.popleft()
-        if done is not None:
-            done.synchronize()  # this batch's copy only
-        emb_chunks.append(embs.numpy())
+        copies, n, ids = pending.popleft()
+        host = []
+        for (part,), done in copies:
+            if done is not None:
+                done.synchronize()  # this batch's copy only
+            host.append(part.numpy())
+        emb_chunks.append(np.concatenate(host)[:n])
         id_chunks.append(ids)
 
     for batch in prefetch(batches, depth=prefetch_depth):
         n = batch.n_valid
-        pending.append((*to_host_async(encode_fn(batch.tokens)[:n]),
+        embs = encode_fn(batch.tokens)
+        parts = embs.parts if isinstance(embs, Sharded) else [embs[:n]]
+        pending.append(([to_host_async(p) for p in parts], n,
                         batch.ids[:n]))
         if len(pending) > _IN_FLIGHT:
             fetch()
@@ -192,13 +245,16 @@ def build_index_on_device(encode_fn: EncodeFn, dataset: SequenceDataset,
     (masked out of every search). ``torch.int8`` quantizes each batch on
     the device (``quantize_rows``); rows never written keep code 0 and
     scale 1.0. Row order is the stream's: length-grouped with
-    ``bucket_lengths``, identity on the id map."""
+    ``bucket_lengths``, identity on the id map.
+
+    ``mesh`` builds a row-sharded index: ``encode_fn`` must encode over
+    the same mesh (``make_encode_fn(..., mesh=mesh)``)."""
     from .flat_index import FlatIPIndex, _pad_rows, quantize_rows
 
     if mesh is not None:
-        raise NotImplementedError("a sharded on-device build (mesh=...) is "
-                                  "not ported yet (ROADMAP A6); build on "
-                                  "one device")
+        return _build_index_on_device_sharded(
+            encode_fn, dataset, batch_size, dim, dtype, block_rows,
+            prefetch_depth, mesh, bucket_lengths)
     dev = resolve_device(device)
     n = len(dataset)
     batches, max_bz, _ = _batch_stream(dataset, batch_size, bucket_lengths)
@@ -229,3 +285,64 @@ def build_index_on_device(encode_fn: EncodeFn, dataset: SequenceDataset,
     return FlatIPIndex.from_tensors(
         buf, torch.from_numpy(ids_buf.astype(np.int32)).to(dev), scales,
         block_rows=block_rows)
+
+
+def _build_index_on_device_sharded(encode_fn: EncodeFn,
+                                   dataset: SequenceDataset, batch_size: int,
+                                   dim: int, dtype, block_rows: int,
+                                   prefetch_depth: int, mesh: Mesh,
+                                   bucket_lengths=None):
+    """Every device writes its part of each encoded batch into its own
+    shard at the same local offset; shard j holds global rows
+    ``[j*local_rows, (j+1)*local_rows)``, as in the reference."""
+    from .flat_index import FlatIPIndex, _pad_rows, quantize_rows
+
+    ndev = mesh.size
+    if getattr(encode_fn, "mesh", None) != mesh:
+        raise ValueError("a sharded build needs an encode over the same "
+                         "mesh: make_encode_fn(model, method, mesh=mesh)")
+    if batch_size % ndev:
+        raise ValueError(f"batch size {batch_size} is not a multiple of "
+                         f"the {ndev} devices")
+    # bucketed batch sizes are multiples of ndev, so every batch splits;
+    # emitted_bound covers the valid rows and the pad tails
+    batches, _, emitted_bound = _batch_stream(dataset, batch_size,
+                                              bucket_lengths,
+                                              batch_multiple=ndev)
+    local_rows = _pad_rows(-(-max(emitted_bound, 1) // ndev), block_rows)
+    int8 = dtype == torch.int8
+    bufs = [torch.zeros((local_rows, dim), dtype=dtype, device=d)
+            for d in mesh.devices]
+    scales = ([torch.ones((local_rows,), dtype=torch.float32, device=d)
+               for d in mesh.devices] if int8 else None)
+    ids_buf = np.full((local_rows * ndev,), -1, np.int64)
+    local_offset = 0
+    for batch in prefetch(batches, depth=prefetch_depth):
+        parts = encode_fn(batch.tokens).parts   # [per_dev, dim] each
+        per_dev = parts[0].shape[0]
+        with torch.inference_mode():
+            for j, part in enumerate(parts):
+                rows = slice(local_offset, local_offset + per_dev)
+                if int8:
+                    codes, s = quantize_rows(part)
+                    bufs[j][rows] = codes
+                    scales[j][rows] = s
+                else:
+                    bufs[j][rows] = part
+        # device j's shard covers global rows [j*local_rows, ...); batch
+        # rows [j*per_dev, (j+1)*per_dev) land at its local offset
+        batch_ids = np.full((per_dev * ndev,), -1, np.int64)
+        batch_ids[:batch.n_valid] = batch.ids[:batch.n_valid]
+        for j in range(ndev):
+            dst = j * local_rows + local_offset
+            ids_buf[dst:dst + per_dev] = batch_ids[j * per_dev:
+                                                   (j + 1) * per_dev]
+        local_offset += per_dev
+    ids32 = ids_buf.astype(np.int32)
+    row_ids = Sharded([
+        torch.from_numpy(ids32[j * local_rows:(j + 1) * local_rows]).to(d)
+        for j, d in enumerate(mesh.devices)])
+    return FlatIPIndex.from_tensors(
+        Sharded(bufs), row_ids,
+        None if scales is None else Sharded(scales),
+        block_rows=block_rows, mesh=mesh)

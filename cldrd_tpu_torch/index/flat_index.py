@@ -1,5 +1,4 @@
-"""Exact inner-product index on one device (port of
-``cldrd_tpu/index/flat_index.py``, single-device paths).
+"""Exact inner-product index (port of ``cldrd_tpu/index/flat_index.py``).
 
 The corpus embedding matrix lives in device memory (bf16 by default,
 fp32, or int8 codes with per-row fp32 scales); external ids are an int32
@@ -7,6 +6,13 @@ array aligned row for row, -1 marking padding. Search is the exact bin-max
 top-k of ``cldrd_tpu_torch.search.mips``, run in positions mode: the device
 returns row positions and the id map is a host-side ``np.take``.
 Certificate misses recover per query through an exact streaming re-scan.
+
+With ``mesh`` the store is row-sharded over the mesh's devices
+(``parallel.Sharded``; rows pad to ``ndev * block_rows``, each shard a
+multiple of ``block_rows``) and searches run ``sharded_topk``: the
+search kernels launch once per shard and the candidates merge on the
+first device. Saved files hold the global row order, as the reference's.
+A sharded index is rebuilt, not updated: ``add``/``remove`` raise.
 """
 from __future__ import annotations
 
@@ -18,7 +24,12 @@ import numpy as np
 import torch
 
 from cldrd_tpu_torch.device import resolve_device, to_host_async
-from cldrd_tpu_torch.search.mips import topk_binmax, topk_streaming
+from cldrd_tpu_torch.parallel.mesh import Mesh, Sharded, shard_rows
+from cldrd_tpu_torch.search.mips import (
+    sharded_topk,
+    topk_binmax,
+    topk_streaming,
+)
 
 
 def _pad_rows(n: int, multiple: int) -> int:
@@ -87,7 +98,8 @@ class HostIdCacheMixin:
 @dataclass
 class FlatIPIndex(HostIdCacheMixin):
     """Exact MIPS index: embeddings [N_pad, D] + row ids [N_pad] on one
-    device (``row_scales`` [N_pad] fp32 for an int8 store)."""
+    device (``row_scales`` [N_pad] fp32 for an int8 store), or each of
+    them a ``Sharded`` over ``mesh``."""
 
     embeddings: torch.Tensor
     row_ids: torch.Tensor
@@ -95,6 +107,7 @@ class FlatIPIndex(HostIdCacheMixin):
     method: str = "binmax"  # 'binmax' (fast exact) | 'stream' (lean exact)
     precision: str = "default"
     row_scales: Optional[torch.Tensor] = None
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         self.rescued_queries = 0  # certificate misses re-scanned so far
@@ -115,23 +128,29 @@ class FlatIPIndex(HostIdCacheMixin):
     def build(cls, embeddings: np.ndarray, ids: np.ndarray,
               dtype=torch.bfloat16, block_rows: int = 8192,
               method: str = "binmax", precision: str = "default",
-              device=None) -> "FlatIPIndex":
+              device=None, mesh: Optional[Mesh] = None) -> "FlatIPIndex":
         """Pad rows to a multiple of ``block_rows`` (id -1) and place the
         store on ``device`` in ``dtype``; ``torch.int8`` quantizes per row
-        on the host first."""
+        on the host first. ``mesh`` row-shards it instead: rows pad to
+        ``ndev * block_rows``."""
         n, d = embeddings.shape
         assert ids.shape == (n,)
         _check_ids(ids)
         if dtype == torch.int8:
             codes, s = quantize_rows(np.asarray(embeddings))
             return cls.build_quantized(codes, s, ids, block_rows, method,
-                                       precision, device)
-        dev = resolve_device(device)
-        n_pad = _pad_rows(max(n, 1), block_rows)
+                                       precision, device, mesh)
+        ndev = 1 if mesh is None else mesh.size
+        n_pad = _pad_rows(max(n, 1), block_rows * ndev)
         row_ids = np.full((n_pad,), -1, np.int32)
         row_ids[:n] = ids.astype(np.int32)
         embs = np.zeros((n_pad, d), np.float32)
         embs[:n] = embeddings
+        if mesh is not None:
+            return cls(shard_rows(embs, mesh, dtype),
+                       shard_rows(row_ids, mesh), block_rows, method,
+                       precision, mesh=mesh)
+        dev = resolve_device(device)
         return cls(torch.from_numpy(embs).to(dev).to(dtype),
                    torch.from_numpy(row_ids).to(dev), block_rows, method,
                    precision)
@@ -140,21 +159,27 @@ class FlatIPIndex(HostIdCacheMixin):
     def build_quantized(cls, codes: np.ndarray, scales: np.ndarray,
                         ids: np.ndarray, block_rows: int = 8192,
                         method: str = "binmax", precision: str = "default",
-                        device=None) -> "FlatIPIndex":
+                        device=None, mesh: Optional[Mesh] = None
+                        ) -> "FlatIPIndex":
         """The int8 index from pre-quantized per-row codes + scales;
         padding rows get scale 1 and id -1."""
         n, d = codes.shape
         assert codes.dtype == np.int8 and ids.shape == (n,)
         assert scales.shape == (n,)
         _check_ids(ids)
-        dev = resolve_device(device)
-        n_pad = _pad_rows(max(n, 1), block_rows)
+        ndev = 1 if mesh is None else mesh.size
+        n_pad = _pad_rows(max(n, 1), block_rows * ndev)
         embs = np.zeros((n_pad, d), np.int8)
         embs[:n] = codes
         sc = np.ones((n_pad,), np.float32)
         sc[:n] = scales
         row_ids = np.full((n_pad,), -1, np.int32)
         row_ids[:n] = ids.astype(np.int32)
+        if mesh is not None:
+            return cls(shard_rows(embs, mesh), shard_rows(row_ids, mesh),
+                       block_rows, method, precision, shard_rows(sc, mesh),
+                       mesh=mesh)
+        dev = resolve_device(device)
         return cls(torch.from_numpy(embs).to(dev),
                    torch.from_numpy(row_ids).to(dev), block_rows, method,
                    precision, torch.from_numpy(sc).to(dev))
@@ -163,17 +188,34 @@ class FlatIPIndex(HostIdCacheMixin):
     def from_tensors(cls, embeddings: torch.Tensor, row_ids: torch.Tensor,
                      row_scales: Optional[torch.Tensor] = None,
                      block_rows: int = 8192, method: str = "binmax",
-                     precision: str = "default") -> "FlatIPIndex":
+                     precision: str = "default", mesh: Optional[Mesh] = None
+                     ) -> "FlatIPIndex":
         """Adopt tensors already on the device (no host round trip). Rows
         must already be padded to a multiple of ``block_rows`` with id -1;
-        int8 embeddings need ``row_scales``."""
+        int8 embeddings need ``row_scales``. With ``mesh`` they are
+        ``Sharded`` parts (or tensors, split here), each part a multiple
+        of ``block_rows`` rows."""
         n = embeddings.shape[0]
-        if n % block_rows or row_ids.shape != (n,):
-            raise ValueError(f"{n} rows: pad to a multiple of {block_rows} "
-                             "with one id per row")
+        ndev = 1 if mesh is None else mesh.size
+        if n % (block_rows * ndev) or tuple(row_ids.shape) != (n,):
+            raise ValueError(f"{n} rows: pad to a multiple of "
+                             f"{block_rows * ndev} with one id per row")
         if (embeddings.dtype == torch.int8) != (row_scales is not None):
             raise ValueError("row_scales go with (and only with) an int8 "
                              "store")
+        if mesh is not None:
+            def as_sharded(x, dtype=None):
+                if isinstance(x, Sharded):
+                    return Sharded([p.to(dtype or p.dtype).contiguous()
+                                    for p in x.parts])
+                return shard_rows(x.contiguous(), mesh, dtype)
+
+            return cls(as_sharded(embeddings),
+                       as_sharded(row_ids, torch.int32), block_rows, method,
+                       precision,
+                       None if row_scales is None
+                       else as_sharded(row_scales, torch.float32),
+                       mesh=mesh)
         return cls(embeddings.contiguous(),
                    row_ids.to(torch.int32).contiguous(), block_rows, method,
                    precision,
@@ -206,7 +248,11 @@ class FlatIPIndex(HostIdCacheMixin):
         no second corpus materializes); only when that capacity runs out
         does a ``block_rows``-aligned slab concatenate on. int8 stores
         quantize new rows with the shared quantizer. Row positions, and so
-        tie order, are the reference's."""
+        tie order, are the reference's. Unsharded indexes only."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "add() on a sharded index would redistribute shards; "
+                "rebuild with FlatIPIndex.build(mesh=...)")
         embeddings = np.asarray(embeddings)
         ids = np.asarray(ids)
         n, d = embeddings.shape
@@ -254,6 +300,9 @@ class FlatIPIndex(HostIdCacheMixin):
         """Tombstone documents (FAISS ``remove_ids``): matching rows get id
         -1 and drop out of every search. Capacity is not reclaimed; the
         new index shares the embedding tensor."""
+        if self.mesh is not None:
+            raise NotImplementedError("remove() on a sharded index: "
+                                      "rebuild instead")
         drop_list = sorted(set(int(i) for i in ids))
         _check_ids(np.asarray(drop_list, np.int64))
         host = self._host_ids()
@@ -268,16 +317,20 @@ class FlatIPIndex(HostIdCacheMixin):
         from .persistence import write_embeddings, write_quantized
 
         host_ids = self._host_ids()
-        valid = torch.from_numpy(np.flatnonzero(host_ids >= 0)).to(
-            self.device)
-        ids = host_ids[host_ids >= 0].astype(np.int64)
+        valid = np.flatnonzero(host_ids >= 0)
+        ids = host_ids[valid].astype(np.int64)
+
+        def rows(x):
+            if isinstance(x, Sharded):   # global row order, from the host
+                return x.cpu()[torch.from_numpy(valid)]
+            return x[torch.from_numpy(valid).to(x.device)].cpu()
+
         if self.embeddings.dtype == torch.int8:
-            write_quantized(out_dir, self.embeddings[valid].cpu().numpy(),
-                            self.row_scales[valid].cpu().numpy(), ids,
+            write_quantized(out_dir, rows(self.embeddings).numpy(),
+                            rows(self.row_scales).numpy(), ids,
                             rows_per_shard=rows_per_shard)
         else:
-            write_embeddings(out_dir,
-                             self.embeddings[valid].float().cpu().numpy(),
+            write_embeddings(out_dir, rows(self.embeddings).float().numpy(),
                              ids, rows_per_shard=rows_per_shard)
 
     # ------------------------------------------------- FAISS read surface
@@ -310,7 +363,14 @@ class FlatIPIndex(HostIdCacheMixin):
         ``KeyError`` for unknown or removed ids."""
         scalar = np.ndim(ids) == 0
         idv = np.atleast_1d(np.asarray(ids, np.int64))
-        rows = torch.from_numpy(self._id_to_row(idv)).to(self.device)
+        rows_host = self._id_to_row(idv)
+        if self.mesh is not None:
+            out = self.embeddings.take(rows_host).float()
+            if self.embeddings.dtype == torch.int8:
+                out = out * self.row_scales.take(rows_host)[:, None]
+            out = out.cpu().numpy()
+            return out[0] if scalar else out
+        rows = torch.from_numpy(rows_host).to(self.device)
         out = self.embeddings[rows].float()
         if self.embeddings.dtype == torch.int8:
             out = out * self.row_scales[rows][:, None]
@@ -404,6 +464,15 @@ class FlatIPIndex(HostIdCacheMixin):
     def _search_device(self, q: torch.Tensor, k: int):
         """Dispatch one device search without waiting for it; returns
         (scores, positions, is_positions=True, ok_or_None)."""
+        if self.mesh is not None:
+            res = sharded_topk(
+                q, self.embeddings, self.row_ids, k, self.mesh,
+                self.mesh.axis_name, self.block_rows, method=self.method,
+                precision=self.precision, return_positions=True,
+                on_miss="flag", row_scales=self.row_scales)
+            if self.method == "binmax":
+                return res[0], res[1], True, res[2]
+            return res[0], res[1], True, None
         if self.method == "binmax":
             s, i, ok = topk_binmax(q, self.embeddings, self.row_ids, k,
                                    precision=self.precision,
@@ -430,9 +499,17 @@ class FlatIPIndex(HostIdCacheMixin):
             if n < fb:
                 chunk = torch.cat([chunk,
                                    chunk[:1].expand(fb - n, q.shape[1])])
-            v, p = topk_streaming(chunk, self.embeddings,
-                                  self._device_pos_ids(), k, self.block_rows,
-                                  self.precision, row_scales=self.row_scales)
+            if self.mesh is not None:
+                v, p = sharded_topk(
+                    chunk, self.embeddings, self.row_ids, k, self.mesh,
+                    self.mesh.axis_name, self.block_rows, method="stream",
+                    precision=self.precision, return_positions=True,
+                    row_scales=self.row_scales)
+            else:
+                v, p = topk_streaming(chunk, self.embeddings,
+                                      self._device_pos_ids(), k,
+                                      self.block_rows, self.precision,
+                                      row_scales=self.row_scales)
             out_s.append(v[:n].cpu().numpy())
             out_p.append(p[:n].cpu().numpy())
         return np.concatenate(out_s), np.concatenate(out_p)

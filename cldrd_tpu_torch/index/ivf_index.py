@@ -1,5 +1,5 @@
-"""IVF (inverted-file) approximate MIPS index on one device (port of
-``cldrd_tpu/index/ivf_index.py``, single-device paths).
+"""IVF (inverted-file) approximate MIPS index (port of
+``cldrd_tpu/index/ivf_index.py``).
 
 Probe ``nprobe`` of the index's cells per query instead of scanning the
 corpus: the low-latency tier for small serving batches.
@@ -23,8 +23,17 @@ corpus: the low-latency tier for small serving batches.
   the reference's own second route.
 - **Exactness**: with ``nprobe == n_buckets`` every row is visited, and
   the result equals ``FlatIPIndex`` / the exact oracle.
-
-Not ported: the mesh-sharded store and search (``mesh``/``axis_name``).
+- **Sharded** (``mesh``): buckets, ids and scales row-shard over the
+  mesh's devices (``parallel.Sharded``), the bucket count padded to a
+  multiple of the shard count with empty buckets that never win a probe
+  (``n_real_buckets``) and never persist. Centroids, codebooks and the
+  OPQ rotation stay whole on the first device, where the global probe
+  set (exactly ``nprobe`` buckets, as on one device) and the PQ tables
+  are computed once and copied to every shard. Each shard masks the
+  probes it does not own, scores its own buckets (K6 per shard where
+  eligible) and takes a local top-k; the candidates merge on the first
+  device. At ``nprobe == n_real`` it is exact too. ``add``/``remove``
+  raise: a sharded store is rebuilt.
 """
 from __future__ import annotations
 
@@ -39,9 +48,11 @@ import torch
 from cldrd_tpu_torch.device import DeviceLike, resolve_device
 from cldrd_tpu_torch.ops.fused_binmax import block_scores
 from cldrd_tpu_torch.ops.ivf_probe import gather_scores, probe_scores
+from cldrd_tpu_torch.parallel.mesh import Mesh, shard_rows
 from cldrd_tpu_torch.search.mips import (
     NEG_INF,
     _top_k,
+    _topk_with_payload,
     topk_with_payload_chunked,
 )
 
@@ -160,20 +171,132 @@ def _ivf_pq_search(q, q_lut, centroids, buckets_flat, bucket_ids, codebooks,
     return _pad_topk(v, ids, k)
 
 
+# ---------------------------------------------------------------------------
+# Sharded search: see the module docstring. Shard j owns the contiguous
+# bucket range [j*nb_local, (j+1)*nb_local).
+
+
+def _local_probe(probe, shard: int, nb_local: int):
+    """Global probe bucket indices -> (clamped local indices, owned mask)
+    for one shard."""
+    local = probe - shard * nb_local
+    valid = (local >= 0) & (local < nb_local)
+    return torch.where(valid, local, torch.zeros_like(local)), valid
+
+
+def _merge_topk_over_mesh(scores_parts, ids_parts, k: int, home):
+    """Each shard's masked scores -> its local top-k -> candidates on
+    ``home`` -> one payload-sort merge, padded to k with (-inf, -1)."""
+    vs, ids = [], []
+    for scores, cand in zip(scores_parts, ids_parts):
+        v, i = topk_with_payload_chunked(scores, cand,
+                                         min(k, scores.shape[1]))
+        vs.append(v.to(home))
+        ids.append(i.to(home))
+    b = vs[0].shape[0]
+    cand_v = torch.stack(vs, 1).reshape(b, -1)   # shard-major per query
+    cand_i = torch.stack(ids, 1).reshape(b, -1)
+    v, i = _topk_with_payload(cand_v, cand_i, min(k, cand_v.shape[1]))
+    return _pad_topk(v, i, k)
+
+
+def _ivf_search_sharded(q, centroids, buckets, bucket_ids, bucket_scales,
+                        k: int, nprobe: int, slot: int, precision: str,
+                        n_real: int):
+    """Sharded flat/int8 IVF search; ``buckets``/``bucket_ids``/
+    ``bucket_scales`` are ``Sharded``, the rest on the first device."""
+    b = q.shape[0]
+    cs = block_scores(q.float(), centroids[:n_real])
+    _, probe = _top_k(cs, nprobe)                             # global
+    nb_local = bucket_ids.part_rows
+    scores_parts, ids_parts = [], []
+    for j, (bk, bid) in enumerate(zip(buckets.parts, bucket_ids.parts)):
+        lidx, valid = _local_probe(probe.to(bk.device), j, nb_local)
+        cand_ids = torch.where(valid[:, :, None], bid[lidx],
+                               torch.full_like(bid[lidx], -1)
+                               ).reshape(b, nprobe * slot)
+        sc = None if bucket_scales is None else bucket_scales.parts[j]
+        scores = _probe_and_score(q.to(bk.device), bk, sc, lidx, slot,
+                                  precision)
+        scores_parts.append(torch.where(cand_ids >= 0, scores, NEG_INF))
+        ids_parts.append(cand_ids)
+    return _merge_topk_over_mesh(scores_parts, ids_parts, k, q.device)
+
+
+def _ivf_pq_search_sharded(q, q_lut, centroids, buckets, bucket_ids,
+                           codebooks, k: int, nprobe: int, slot: int,
+                           n_real: int):
+    """Sharded IVFPQ search: the coarse scores and the LUT are computed
+    once; only the code gather and the LUT scoring run per shard."""
+    b = q.shape[0]
+    m = codebooks.shape[0]
+    row_bytes = buckets.shape[1] // slot
+    q = q.float()
+    cs = block_scores(q, centroids[:n_real])
+    base, probe = _top_k(cs, nprobe)                          # [B, p] x2
+    lut = pq_lut(q_lut.float(), codebooks)                    # [B, m, n_codes]
+    nb_local = bucket_ids.part_rows
+    scores_parts, ids_parts = [], []
+    for j, (bk, bid) in enumerate(zip(buckets.parts, bucket_ids.parts)):
+        dev = bk.device
+        lidx, valid = _local_probe(probe.to(dev), j, nb_local)
+        cand = bk[lidx].reshape(b, nprobe * slot, row_bytes)
+        cand_codes = (cand.to(torch.int32) if row_bytes == m
+                      else unpack_codes4(cand))
+        cand_ids = torch.where(valid[:, :, None], bid[lidx],
+                               torch.full_like(bid[lidx], -1)
+                               ).reshape(b, nprobe * slot)
+        scores = pq_scores_from_codes(cand_codes, lut.to(dev))
+        scores = scores + base.to(dev).repeat_interleave(slot, dim=1)
+        scores_parts.append(torch.where(cand_ids >= 0, scores, NEG_INF))
+        ids_parts.append(cand_ids)
+    return _merge_topk_over_mesh(scores_parts, ids_parts, k, q.device)
+
+
 def _place_bucket_store(mat_flat: np.ndarray, bids: np.ndarray, scs,
-                        cents: np.ndarray, store_dtype, slot: int,
-                        device: torch.device):
+                        cents: np.ndarray, bcl, store_dtype, slot: int,
+                        device: torch.device, mesh: Optional[Mesh] = None):
     """Put the host bucket store on ``device``: non-PQ stores in row
     layout [nb*slot, D] (a free host reshape), PQ code stores as
-    [nb, slot*mb]. Returns (buckets, bucket_ids, scales, centroids)."""
+    [nb, slot*mb]. With ``mesh`` the bucket count pads to a multiple of
+    the mesh size (zero rows, ids -1, scales 1, zero centroids, cluster
+    -1) and buckets/ids/scales row-shard over it; centroids go to its
+    first device. Returns (buckets, bucket_ids, scales, centroids,
+    bucket_cluster, n_real)."""
     pq = store_dtype == torch.uint8
-    m = mat_flat if pq else mat_flat.reshape(mat_flat.shape[0] * slot, -1)
-    buckets = torch.from_numpy(np.ascontiguousarray(m)).to(device)
-    if buckets.dtype != store_dtype:
-        buckets = buckets.to(store_dtype)   # float stores stage fp32
-    return (buckets, torch.from_numpy(bids).to(device),
-            None if scs is None else torch.from_numpy(scs).to(device),
-            torch.from_numpy(np.asarray(cents, np.float32)).to(device))
+    nb = mat_flat.shape[0]
+
+    def layout(m):
+        return m if pq else m.reshape(m.shape[0] * slot, -1)
+
+    if mesh is None:
+        buckets = torch.from_numpy(np.ascontiguousarray(
+            layout(mat_flat))).to(device)
+        if buckets.dtype != store_dtype:
+            buckets = buckets.to(store_dtype)   # float stores stage fp32
+        return (buckets, torch.from_numpy(bids).to(device),
+                None if scs is None else torch.from_numpy(scs).to(device),
+                torch.from_numpy(np.asarray(cents, np.float32)).to(device),
+                bcl, nb)
+    ndev = mesh.size
+    pad = -(-max(nb, 1) // ndev) * ndev - nb
+    if pad:
+        mat_flat = np.concatenate(
+            [mat_flat, np.zeros((pad, mat_flat.shape[1]), mat_flat.dtype)])
+        bids = np.concatenate([bids, np.full((pad, slot), -1, np.int32)])
+        if scs is not None:
+            scs = np.concatenate([scs, np.ones((pad, slot), np.float32)])
+        cents = np.concatenate(
+            [cents, np.zeros((pad, cents.shape[1]), cents.dtype)])
+        if bcl is not None:
+            bcl = np.concatenate([bcl, np.full((pad,), -1, np.int32)])
+    return (shard_rows(np.ascontiguousarray(layout(mat_flat)), mesh,
+                       store_dtype),
+            shard_rows(bids, mesh),
+            None if scs is None else shard_rows(scs, mesh),
+            torch.from_numpy(np.asarray(cents, np.float32)).to(
+                mesh.devices[0]),
+            bcl, nb)
 
 
 def _to_device_f32(x, device):
@@ -200,6 +323,9 @@ class IVFIndex(HostIdCacheMixin):
                                 # map bucket -> training cluster (add())
     codebooks: Optional[torch.Tensor] = None      # [pq_m, 2**bits, D/pq_m]
     opq_rotation: Optional[torch.Tensor] = None   # [D, D] orthogonal (OPQ)
+    mesh: Optional[Mesh] = None                   # row-shards the buckets
+    n_real_buckets: Optional[int] = None          # non-pad buckets of a
+                                # sharded store; None = all are real
 
     @property
     def device(self) -> torch.device:
@@ -212,6 +338,12 @@ class IVFIndex(HostIdCacheMixin):
     @property
     def n_buckets(self) -> int:
         return self.centroids.shape[0]
+
+    @property
+    def n_real(self) -> int:
+        """Buckets that hold (or held) data: the mesh pads excluded."""
+        return (self.n_buckets if self.n_real_buckets is None
+                else self.n_real_buckets)
 
     @property
     def is_pq(self) -> bool:
@@ -238,7 +370,8 @@ class IVFIndex(HostIdCacheMixin):
               kmeans_iters: int = 15, seed: int = 0,
               centroids: Optional[np.ndarray] = None,
               pq_m: Optional[int] = None, pq_bits: int = 4,
-              opq: bool = False, device: DeviceLike = None) -> "IVFIndex":
+              opq: bool = False, device: DeviceLike = None,
+              mesh: Optional[Mesh] = None) -> "IVFIndex":
         """Train (or accept) ``nlist`` centroids, group rows into
         fixed-``slot`` buckets, and place everything on ``device``.
 
@@ -246,8 +379,10 @@ class IVFIndex(HostIdCacheMixin):
         ``dtype`` bf16 (default) / float32 / int8. ``pq_m`` switches the
         store to product-quantized residual codes (``pq_m`` sub-quantizers
         of ``2**pq_bits`` codewords; ``dtype`` is then ignored); ``opq``
-        also learns an orthogonal pre-rotation."""
-        dev = resolve_device(device)
+        also learns an orthogonal pre-rotation. ``mesh`` row-shards the
+        bucket store over the mesh's devices (training runs on its first
+        device)."""
+        dev = resolve_device(device) if mesh is None else mesh.devices[0]
         embeddings = np.asarray(embeddings, np.float32)
         n, d = embeddings.shape
         ids = np.asarray(ids)
@@ -322,14 +457,15 @@ class IVFIndex(HostIdCacheMixin):
 
         store_dtype = (torch.uint8 if pq_m is not None
                        else (torch.int8 if int8 else dtype))
-        buckets, dev_ids, scales, dev_cents = _place_bucket_store(
-            mat.reshape(nb, slot * row_w), bids, scs, cents, store_dtype,
-            slot, dev)
+        buckets, dev_ids, scales, dev_cents, bcl, n_real = \
+            _place_bucket_store(mat.reshape(nb, slot * row_w), bids, scs,
+                                cents, bcl, store_dtype, slot, dev, mesh)
         return cls(centroids=dev_cents, buckets=buckets, bucket_ids=dev_ids,
                    slot=slot, nprobe=nprobe, precision=precision,
                    bucket_scales=scales, bucket_cluster=bcl,
                    codebooks=_to_device_f32(codebooks, dev),
-                   opq_rotation=_to_device_f32(rotation, dev))
+                   opq_rotation=_to_device_f32(rotation, dev), mesh=mesh,
+                   n_real_buckets=n_real)
 
     # ------------------------------------------------------------ search
 
@@ -348,7 +484,7 @@ class IVFIndex(HostIdCacheMixin):
         """queries [B, D] (host or device) -> (scores [B, k] fp32, external
         ids [B, k] int32; -1 fills ranks beyond the probed rows).
 
-        ``nprobe`` clamps to ``n_buckets``, where the search is exact. The
+        ``nprobe`` clamps to ``n_real``, where the search is exact. The
         batch pads to the next power of two >= 8 by repeating the first
         row, so a micro-batcher's arbitrary group sizes reuse a few
         shapes."""
@@ -358,8 +494,8 @@ class IVFIndex(HostIdCacheMixin):
         p = self.nprobe if nprobe is None else int(nprobe)
         if p < 1:
             raise ValueError(f"nprobe must be >= 1 (got {p})")
-        p = min(p, self.n_buckets)
-        if p * self.slot < k and p < self.n_buckets:
+        p = min(p, self.n_real)
+        if p * self.slot < k and p < self.n_real:
             raise ValueError(
                 f"nprobe*slot ({p}*{self.slot}) < k ({k}): raise nprobe "
                 "or build with a larger slot")
@@ -373,9 +509,19 @@ class IVFIndex(HostIdCacheMixin):
             # OPQ moves into the LUT input: q . x == (q R) . (x R); the
             # coarse term keeps plain q
             q_lut = q if self.opq_rotation is None else q @ self.opq_rotation
-            v, ids = _ivf_pq_search(q, q_lut, self.centroids, self.buckets,
-                                    self.bucket_ids, self.codebooks, k, p,
-                                    self.slot)
+            if self.mesh is not None:
+                v, ids = _ivf_pq_search_sharded(
+                    q, q_lut, self.centroids, self.buckets, self.bucket_ids,
+                    self.codebooks, k, p, self.slot, self.n_real)
+            else:
+                v, ids = _ivf_pq_search(q, q_lut, self.centroids,
+                                        self.buckets, self.bucket_ids,
+                                        self.codebooks, k, p, self.slot)
+        elif self.mesh is not None:
+            v, ids = _ivf_search_sharded(
+                q, self.centroids, self.buckets, self.bucket_ids,
+                self.bucket_scales, k, p, self.slot, self.precision,
+                self.n_real)
         else:
             v, ids = _ivf_search(q, self.centroids, self.buckets,
                                  self.bucket_ids, self.bucket_scales, k, p,
@@ -407,7 +553,11 @@ class IVFIndex(HostIdCacheMixin):
         cluster's buckets, written IN PLACE into this index's tensors (do
         not search the old object afterwards); only cluster overflow
         appends new buckets. Placement, and so tie order, is the
-        reference's."""
+        reference's. Unsharded stores only."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "add() on a sharded IVF index would redistribute shards; "
+                "rebuild with IVFIndex.build(mesh=...)")
         embeddings = np.asarray(embeddings, np.float32)
         n, d = embeddings.shape
         ids = np.asarray(ids)
@@ -526,6 +676,9 @@ class IVFIndex(HostIdCacheMixin):
     def remove(self, ids) -> "IVFIndex":
         """Tombstone matching rows (id -> -1); FAISS ``remove_ids``.
         Their slots are reusable by add()."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "remove() on a sharded IVF index: rebuild instead")
         drop = np.asarray(sorted(set(int(i) for i in ids)), np.int64)
         _check_ids(drop)
         host = self._host_ids()
@@ -537,24 +690,27 @@ class IVFIndex(HostIdCacheMixin):
     def save(self, out_dir: str) -> None:
         """Write the reference's ``format_version 1`` directory: the store
         as [nb, slot*row_w] (int8 and PQ codes verbatim, float stores as
-        fp32), ids, scales, cluster map, codebooks, rotation, meta."""
+        fp32), ids, scales, cluster map, codebooks, rotation, meta. A
+        sharded store's pad buckets do not persist, so the directory
+        reloads onto any shard count."""
         os.makedirs(out_dir, exist_ok=True)
-        nb = self.n_buckets
+        nb = self.n_real
         np.save(os.path.join(out_dir, "centroids.npy"),
-                self.centroids.cpu().numpy())
+                self.centroids[:nb].cpu().numpy())
         store = (self.buckets.cpu().numpy()
                  if self.buckets.dtype in (torch.int8, torch.uint8)
                  else self.buckets.float().cpu().numpy())
         if not self.is_pq:          # rows [nb*slot, D] -> disk [nb, slot*D]
-            store = store.reshape(nb, -1)
-        np.save(os.path.join(out_dir, "buckets.npy"), store)
-        np.save(os.path.join(out_dir, "bucket_ids.npy"), self._host_ids())
+            store = store[:nb * self.slot].reshape(nb, -1)
+        np.save(os.path.join(out_dir, "buckets.npy"), store[:nb])
+        np.save(os.path.join(out_dir, "bucket_ids.npy"),
+                self._host_ids()[:nb])
         if self.bucket_scales is not None:
             np.save(os.path.join(out_dir, "bucket_scales.npy"),
-                    self.bucket_scales.cpu().numpy())
+                    self.bucket_scales.cpu().numpy()[:nb])
         if self.bucket_cluster is not None:
             np.save(os.path.join(out_dir, "bucket_cluster.npy"),
-                    self.bucket_cluster.astype(np.int32))
+                    self.bucket_cluster.astype(np.int32)[:nb])
         if self.is_pq:
             np.save(os.path.join(out_dir, "pq_codebooks.npy"),
                     self.codebooks.cpu().numpy())
@@ -582,14 +738,16 @@ class IVFIndex(HostIdCacheMixin):
 
     @classmethod
     def load(cls, out_dir: str, dtype=None, precision=None,
-             device: DeviceLike = None) -> "IVFIndex":
+             device: DeviceLike = None, mesh: Optional[Mesh] = None
+             ) -> "IVFIndex":
         """Load a ``save()`` directory (either package's) onto ``device``.
 
         ``dtype`` is the device store's: an int8 store keeps its codes
         only when int8 is asked for; any float request (or the bf16
         default) dequantizes codes x scales. A PQ store has one device
-        form (uint8 codes, fp32 LUT scoring), so a dtype request raises."""
-        dev = resolve_device(device)
+        form (uint8 codes, fp32 LUT scoring), so a dtype request raises.
+        ``mesh`` loads the buckets straight into shards."""
+        dev = resolve_device(device) if mesh is None else mesh.devices[0]
         with open(os.path.join(out_dir, IVF_META_NAME)) as f:
             meta = json.load(f)
         cents = np.load(os.path.join(out_dir, "centroids.npy"))
@@ -629,14 +787,16 @@ class IVFIndex(HostIdCacheMixin):
         bcl_path = os.path.join(out_dir, "bucket_cluster.npy")
         bcl = np.load(bcl_path) if os.path.isfile(bcl_path) else None
         slot = int(meta["slot"])
-        dev_buckets, dev_ids, scales, dev_cents = _place_bucket_store(
-            buckets, bids, host_scales, cents, store_dtype, slot, dev)
+        dev_buckets, dev_ids, scales, dev_cents, bcl, n_real = \
+            _place_bucket_store(buckets, bids, host_scales, cents, bcl,
+                                store_dtype, slot, dev, mesh)
         return cls(centroids=dev_cents, buckets=dev_buckets,
                    bucket_ids=dev_ids, slot=slot, nprobe=int(meta["nprobe"]),
                    precision=precision or meta.get("precision", "default"),
                    bucket_scales=scales, bucket_cluster=bcl,
                    codebooks=_to_device_f32(codebooks, dev),
-                   opq_rotation=_to_device_f32(rotation, dev))
+                   opq_rotation=_to_device_f32(rotation, dev), mesh=mesh,
+                   n_real_buckets=n_real)
 
 
 def ivf_exists(out_dir: str) -> bool:

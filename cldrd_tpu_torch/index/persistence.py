@@ -107,10 +107,11 @@ def index_exists(out_dir: str) -> bool:
 
 
 def load_index(out_dir: str, dtype=None, block_rows: int = 8192,
-               precision: str = "default", device=None):
+               precision: str = "default", device=None, mesh=None):
     """Read an embedding store and stand up a device ``FlatIPIndex``
     (``dtype``: torch dtype of the device store, bf16 by default). An int8
-    store loaded with ``dtype=torch.int8`` goes codes -> device directly."""
+    store loaded with ``dtype=torch.int8`` goes codes -> device directly.
+    ``mesh`` loads it straight into row shards over the mesh's devices."""
     import torch
 
     from .flat_index import FlatIPIndex
@@ -123,7 +124,7 @@ def load_index(out_dir: str, dtype=None, block_rows: int = 8192,
         scales = np.load(os.path.join(out_dir, SCALES_NAME))
         return FlatIPIndex.build_quantized(
             codes, scales, ids, block_rows=block_rows, precision=precision,
-            device=device)
+            device=device, mesh=mesh)
     embs, ids = read_embeddings(out_dir)
     return FlatIPIndex.build(embs, ids, dtype=dtype, block_rows=block_rows,
-                             precision=precision, device=device)
+                             precision=precision, device=device, mesh=mesh)

@@ -24,11 +24,28 @@ the einsum form, 'pallas' the port's CUDA kernels (``ops/attention.py``:
 K3/K4 in training with attention dropout, K5 otherwise), 'auto' the
 kernels when training with attention dropout on the card and the einsum
 form everywhere else (``resolve_attention_impl``).
+
+Memory and speed options, as in the reference's config:
+
+- ``fused_qkv``: q, k and v in one product with the three projections'
+  weights and biases concatenated (the parameters keep their names; a
+  ``cls_only`` final block keeps split projections);
+- ``softmax_in_compute_dtype``: scores and softmax in the compute dtype
+  on the einsum path (the kernels keep fp32 softmax);
+- ``remat`` with ``remat_policy`` 'full' | 'dots': every block runs under
+  ``torch.utils.checkpoint`` and recomputes its activations in the
+  backward; 'dots' keeps the weight products' outputs (``aten.mm`` /
+  ``aten.addmm``, jax's ``dots_with_no_batch_dims_saveable``) and
+  recomputes attention and the elementwise ops. The recompute replays the
+  block's dropout: its generator state and its attention-kernel seed are
+  taken once, before the block, and reused (``_ReplayRNG``), as flax's
+  ``nn.remat`` replays its keys.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -62,11 +79,15 @@ class DropoutRNG:
     as the reference's ``fold_in(PRNGKey(seed), step)``: a generator on
     ``device`` for hidden and attention-probs masks, and a host stream of
     int32 seeds for the attention kernels' hash (drawn without a device
-    sync). A resumed run replays the same masks."""
+    sync). A resumed run replays the same masks. ``stream`` (a
+    data-parallel rank) selects an independent stream of the same step."""
 
-    def __init__(self, seed: int, step: int, device):
-        mixed = np.random.SeedSequence([int(seed) & 0xFFFFFFFF,
-                                        int(step) & 0xFFFFFFFF])
+    def __init__(self, seed: int, step: int, device,
+                 stream: Optional[int] = None):
+        words = [int(seed) & 0xFFFFFFFF, int(step) & 0xFFFFFFFF]
+        if stream is not None:
+            words.append(int(stream) & 0xFFFFFFFF)
+        mixed = np.random.SeedSequence(words)
         words = mixed.generate_state(3)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(words[0]) << 32 | int(words[1]))
@@ -82,6 +103,39 @@ class DropoutRNG:
         keep = torch.rand(x.shape, generator=self.generator,
                           device=x.device) >= p
         return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+class _ReplayRNG(DropoutRNG):
+    """One block's dropout under remat. The first run draws from the
+    step's ``DropoutRNG`` and records the generator state it started from
+    and the kernel seeds it drew; every later run (the backward's
+    recompute) restores that state on a private generator and returns the
+    recorded seeds, so it draws the same masks. ``begin()`` starts a
+    run."""
+
+    def __init__(self, rng: DropoutRNG):
+        self._rng = rng
+        self._start = rng.generator.get_state()
+        self._seeds: List[int] = []
+        self._runs = 0
+        self._pos = 0
+        self.generator = rng.generator
+
+    def begin(self) -> None:
+        if self._runs:
+            self.generator = torch.Generator(device=self._rng.generator.device)
+            self.generator.set_state(self._start)
+        self._pos = 0
+        self._runs += 1
+
+    def next_seed(self) -> int:
+        if self._runs == 1:
+            seed = self._rng.next_seed()
+            self._seeds.append(seed)
+            return seed
+        seed = self._seeds[self._pos]
+        self._pos += 1
+        return seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +154,11 @@ class DistilBertConfig:
     initializer_range: float = 0.02
     # 'auto' | 'xla' | 'pallas', as in the reference (resolve_attention_impl)
     attention_impl: str = "auto"
+    # memory and speed options (module docstring), the reference's defaults
+    fused_qkv: bool = False
+    softmax_in_compute_dtype: bool = False
+    remat: bool = False
+    remat_policy: str = "full"   # 'full' | 'dots'
 
     @classmethod
     def tiny(cls, **overrides) -> "DistilBertConfig":
@@ -194,12 +253,22 @@ class MultiHeadSelfAttention(nn.Module):
         head_dim = cfg.dim // cfg.n_heads
         q_in = hidden[:, :1] if cls_only else hidden
         q_len = q_in.shape[1]
-        q = _linear(q_in, self.q_lin, dt).view(bsz, q_len, cfg.n_heads,
-                                               head_dim)
-        k = _linear(hidden, self.k_lin, dt).view(bsz, seq_len, cfg.n_heads,
-                                                 head_dim)
-        v = _linear(hidden, self.v_lin, dt).view(bsz, seq_len, cfg.n_heads,
-                                                 head_dim)
+        if cfg.fused_qkv and not cls_only:
+            # one [D, 3D] product; each output column reduces over the same
+            # D inputs as in the three-product form
+            lins = (self.q_lin, self.k_lin, self.v_lin)
+            w = torch.cat([lin.weight for lin in lins]).to(dt)
+            b = torch.cat([lin.bias for lin in lins]).to(dt)
+            q, k, v = (x.reshape(bsz, seq_len, cfg.n_heads, head_dim)
+                       for x in F.linear(hidden.to(dt), w, b).split(
+                           cfg.dim, dim=-1))
+        else:
+            q = _linear(q_in, self.q_lin, dt).view(bsz, q_len, cfg.n_heads,
+                                                   head_dim)
+            k = _linear(hidden, self.k_lin, dt).view(bsz, seq_len,
+                                                     cfg.n_heads, head_dim)
+            v = _linear(hidden, self.v_lin, dt).view(bsz, seq_len,
+                                                     cfg.n_heads, head_dim)
         # the kernels take every block but a cls_only final one (its q is
         # one row), as in the reference
         train_mode = rng is not None and cfg.attention_dropout != 0.0
@@ -216,7 +285,11 @@ class MultiHeadSelfAttention(nn.Module):
             # HF parity: scale Q (not the logits), in the compute dtype
             q = q / torch.sqrt(torch.tensor(head_dim, dtype=dt,
                                             device=hidden.device))
-            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            if cfg.softmax_in_compute_dtype:
+                scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+            else:
+                scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                      k.float())
             mask = attention_mask[:, None, None, :].bool()
             if segment_ids is not None:
                 seg_q = segment_ids[:, :1] if cls_only else segment_ids
@@ -300,9 +373,16 @@ class DistilBertEncoder(nn.Module):
         hidden = self.embeddings(input_ids, position_ids, rng,
                                  token_type_ids)
         n = len(self.transformer.layer)
+        remat = self.config.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.transformer.layer):
-            hidden = block(hidden, attention_mask, segment_ids, rng,
-                           cls_only and i == n - 1)
+            last = cls_only and i == n - 1
+            if remat:
+                hidden = _remat_block(block, self.config.remat_policy,
+                                      hidden, attention_mask, segment_ids,
+                                      rng, last)
+            else:
+                hidden = block(hidden, attention_mask, segment_ids, rng,
+                               last)
         return hidden
 
     @torch.no_grad()
@@ -320,6 +400,46 @@ class DistilBertEncoder(nn.Module):
                 mod.weight.copy_(w)
                 if isinstance(mod, nn.Linear):
                     mod.bias.zero_()
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """'dots': keep the weight products' outputs (the batched attention
+    products, ``aten.bmm``, have batch dims and are recomputed)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(block, policy: str, hidden, attention_mask, segment_ids,
+                 rng: Optional[DropoutRNG], cls_only: bool):
+    """``block(...)`` under ``torch.utils.checkpoint`` (non-reentrant),
+    its dropout replayed by a ``_ReplayRNG``; the global RNG is not used,
+    so it is not saved either."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r} (full | dots)")
+    replay = None if rng is None else _ReplayRNG(rng)
+
+    def run(h, mask, seg):
+        if replay is not None:
+            replay.begin()
+        return block(h, mask, seg, replay, cls_only)
+
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(run, hidden, attention_mask, segment_ids,
+                      use_reentrant=False, preserve_rng_state=False,
+                      **kwargs)
 
 
 def cls_pool(hidden: torch.Tensor) -> torch.Tensor:

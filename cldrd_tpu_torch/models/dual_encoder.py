@@ -129,6 +129,12 @@ class NwayDualEncoder(nn.Module):
             nway_reps = self.packed_nway_passage_embs(packed_passages, rng)
         else:
             nway_reps = self.nway_passage_embs(nway_passages, rng)
+        return self.logits(query_reps, nway_reps)
+
+    def logits(self, query_reps: torch.Tensor,
+               nway_reps: torch.Tensor) -> torch.Tensor:
+        """Embeddings [bz, D] and [bz, nway, D] -> logits [bz, nway'] in
+        fp32 (the in-batch negatives taken from these ``bz`` rows)."""
         bz, nway, dim = nway_reps.shape
         if self.in_batch_loss:
             neg_idx = torch.from_numpy(_in_batch_neg_indices(

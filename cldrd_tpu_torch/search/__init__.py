@@ -1,4 +1,5 @@
 from .mips import (
+    sharded_topk,
     topk_binmax,
     topk_dense,
     topk_streaming,
@@ -6,5 +7,5 @@ from .mips import (
 )
 from .run_writer import retrieve_to_run_file, write_run_file
 
-__all__ = ["retrieve_to_run_file", "topk_binmax", "topk_dense",
+__all__ = ["retrieve_to_run_file", "sharded_topk", "topk_binmax", "topk_dense",
            "topk_streaming", "topk_with_payload_chunked", "write_run_file"]

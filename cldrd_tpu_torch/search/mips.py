@@ -485,3 +485,62 @@ def topk_binmax(queries: torch.Tensor, corpus: torch.Tensor,
         return finish(seg_v[0], seg_p[0], ok_all)
     v, p = _topk_with_payload(torch.cat(seg_v, -1), torch.cat(seg_p, -1), k)
     return finish(v, p, ok_all)
+
+
+def sharded_topk(queries: torch.Tensor, corpus, row_ids, k: int, mesh=None,
+                 axis_name: str = "corpus", block_rows: int = 8192,
+                 method: str = "binmax", precision: str = "default",
+                 return_positions: bool = False, on_miss: str = "fallback",
+                 row_scales=None):
+    """Corpus-sharded exact top-k (``shard_map`` in the reference).
+
+    ``corpus``/``row_ids``/``row_scales`` are ``parallel.Sharded``: part j
+    holds global rows ``[j*r, (j+1)*r)`` on its own device. Each shard
+    runs its exact top-k there (``method``: 'binmax', which launches the
+    search kernels per shard, or 'stream'); the ``[ndev, B, k]``
+    candidates come to the first part's device and one payload sort picks
+    the global winners (k candidates a shard always cover the global
+    top-k). ``return_positions`` gives global row positions: a shard adds
+    ``j * r`` to its own. ``on_miss='flag'`` (binmax; streaming is exact)
+    returns ``ok`` [B], true only where every shard certified its top-k.
+    ``mesh`` (optional) must match the parts."""
+    if mesh is not None and mesh.size != len(corpus.parts):
+        raise ValueError(f"{len(corpus.parts)} shards on a mesh of "
+                         f"{mesh.size}")
+    home = queries.device
+    shard_rows = corpus.part_rows
+    cands_s, cands_i, oks = [], [], []
+    for j, (c, ids) in enumerate(zip(corpus.parts, row_ids.parts)):
+        q = queries.to(c.device)
+        sc = None if row_scales is None else row_scales.parts[j]
+        if method == "binmax":
+            res = topk_binmax(q, c, ids, k, precision=precision,
+                              return_positions=return_positions,
+                              on_miss=on_miss, row_scales=sc)
+            if on_miss == "flag":
+                local_s, local_i, ok = res
+                oks.append(ok.to(home))
+            else:
+                local_s, local_i = res
+        else:
+            ids_or_pos = (_positions_of(ids.to(torch.int32))
+                          if return_positions else ids)
+            local_s, local_i = topk_streaming(q, c, ids_or_pos, k,
+                                              block_rows, precision,
+                                              row_scales=sc)
+        if return_positions:
+            local_i = torch.where(local_i >= 0, local_i + j * shard_rows,
+                                  torch.full_like(local_i, -1))
+        cands_s.append(local_s.to(home))
+        cands_i.append(local_i.to(home))
+    bz = queries.shape[0]
+    # [ndev, B, k] -> [B, ndev*k], shard-major within a query as the
+    # reference's all-gather + transpose lays it out
+    cand_s = torch.stack(cands_s, 1).reshape(bz, -1)
+    cand_i = torch.stack(cands_i, 1).reshape(bz, -1)
+    top_s, top_i = _topk_with_payload(cand_s, cand_i, k)
+    if on_miss == "flag":
+        ok = (torch.stack(oks).all(0) if oks
+              else torch.ones((bz,), dtype=torch.bool, device=home))
+        return top_s, top_i, ok
+    return top_s, top_i

@@ -9,7 +9,8 @@ the port's ``models.convert``). Writes go to a temporary file, are
 synced, then renamed over the target, so a preempted run never leaves a
 torn checkpoint. A JAX ``Trainer``'s ``checkpoint_<step>.msgpack``
 (decoded by ``train/msgpack_io.py``) is read too: its ``params`` for a
-warm start, and for a resume also its AdamW moments and count.
+warm start, and for a resume also its AdamW moments and count, and under
+gradient accumulation (``optax.MultiSteps``) the accumulator.
 """
 from __future__ import annotations
 
@@ -54,22 +55,31 @@ def save_checkpoint(blob: Dict[str, Any], directory: str, step: int,
 
 def _from_flax_train_state(tree: Dict[str, Any], path: str
                            ) -> Dict[str, Any]:
-    """A JAX ``TrainState`` (``{params, opt_state, step, epoch}``, opt_state
-    of ``optax.chain(clip_by_global_norm, adamw)``) -> ``{"state_dict",
-    "adam": {"count", "mu", "nu"}, "step", "epoch"}``, the moments by the
-    port's parameter names."""
+    """A JAX ``TrainState`` (``{params, opt_state, step, epoch}``) ->
+    ``{"state_dict", "adam": {"count", "mu", "nu"}, "step", "epoch"}``,
+    the moments by the port's parameter names. The opt_state is
+    ``optax.chain(clip_by_global_norm, adamw)``, or that chain inside
+    ``optax.MultiSteps`` (``grad_accum_steps > 1``: ``{mini_step,
+    gradient_step, inner_opt_state, acc_grads, skip_state}``), whose
+    accumulator comes back as ``"accum": {"mini_step", "acc"}``."""
+    opt = tree["opt_state"]
+    out = {"state_dict": params_from_flax(tree["params"]),
+           "step": int(tree["step"]), "epoch": int(tree["epoch"])}
+    if isinstance(opt, dict) and "inner_opt_state" in opt:
+        out["accum"] = {"mini_step": int(opt["mini_step"]),
+                        "acc": params_from_flax(opt["acc_grads"])}
+        opt = opt["inner_opt_state"]
     try:
-        adam = tree["opt_state"]["1"]["0"]
+        adam = opt["1"]["0"]
         count, mu, nu = int(adam["count"]), adam["mu"], adam["nu"]
     except (KeyError, TypeError):
-        raise NotImplementedError(
-            f"{path}: resuming reads the optimizer state of "
-            "optax.chain(clip_by_global_norm, adamw); this one (gradient "
-            "accumulation's optax.MultiSteps?) is not read yet")
-    return {"state_dict": params_from_flax(tree["params"]),
-            "adam": {"count": count, "mu": params_from_flax(mu),
-                     "nu": params_from_flax(nu)},
-            "step": int(tree["step"]), "epoch": int(tree["epoch"])}
+        raise ValueError(
+            f"{path}: not the optimizer state of the JAX Trainer "
+            "(optax.chain(clip_by_global_norm, adamw), optionally in "
+            "optax.MultiSteps)")
+    out["adam"] = {"count": count, "mu": params_from_flax(mu),
+                   "nu": params_from_flax(nu)}
+    return out
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

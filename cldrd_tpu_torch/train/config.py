@@ -77,8 +77,8 @@ class TrainConfig:
 
     # precision / parallelism
     compute_dtype: str = "bfloat16"    # bf16 compute over fp32 params
-    n_devices: Optional[int] = None    # one device (None or 1) for now
-    remat: bool = False                # not ported: True raises
+    n_devices: Optional[int] = None    # None = the process group's ranks
+    remat: bool = False                # per-block activation rematerialization
     pack_passages: Optional[bool] = None  # pack short passages into shared
                                        # max_passage_len rows (segment-masked
                                        # attention + position reset,

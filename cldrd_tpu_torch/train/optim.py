@@ -128,6 +128,16 @@ class Optimizer:
                                        self.scheduler.lr_lambdas):
             group["lr"] = base * factor(count)
 
+    @torch.no_grad()
+    def load_accumulator(self, mini_step: int,
+                         acc: Dict[str, torch.Tensor]) -> None:
+        """Resume inside an accumulation window from optax
+        ``MultiSteps``' state: ``mini_step`` micro-batches taken, ``acc``
+        their running mean by parameter name."""
+        self.mini_step = int(mini_step)
+        self.acc = [acc[name].to(p.device, p.dtype).clone()
+                    for name, p in zip(self.names, self.params)]
+
     def load_state_dict(self, state: Dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
         self.mini_step = int(state["mini_step"])

@@ -1,5 +1,5 @@
 """Curriculum trainer: one config-driven training loop (port of
-``cldrd_tpu/train/trainer.py`` on one device).
+``cldrd_tpu/train/trainer.py``).
 
 - loss = ``cfg.loss`` on the [bz, nway'] dual-encoder logits; in-batch
   negatives pad the labels with -0.5; the L2 logit regularizer
@@ -14,7 +14,21 @@
   starts the weights; ``nan_policy`` decides what a non-finite loss does;
   SIGTERM checkpoints at the next step boundary and returns;
 - the dropout of step n comes from ``DropoutRNG(seed, n)``, so a resumed
-  run replays the masks of the uninterrupted one.
+  run replays the masks of the uninterrupted one;
+- ``cfg.remat`` turns on the model's ``remat`` (``remat_policy`` comes
+  from the model config).
+
+Data parallel: under a ``torch.distributed`` group (one process per
+device; ``parallel/multihost.py``) every rank reads the same seeded batch
+order and encodes its contiguous ``batch_size / world`` rows of each
+global batch. The query and passage embeddings are all-gathered (each
+rank keeps the autograd graph of its own rows), so every rank computes
+the loss of the GLOBAL batch: in-batch negatives come from all of it,
+``reg_lambda``'s norm is that of the global logits, and MRR/recall are
+global. The gradients are summed over ranks before clipping, so
+``grad_norm`` and the clip are global too; the step equals the
+one-process step on the whole batch up to reduction order. Dropout draws
+a stream per rank. Only rank 0 writes checkpoints, logs and TensorBoard.
 
 Metrics stay on the device until a logging or checkpoint boundary, where
 they are fetched together (one synchronisation per boundary).
@@ -30,6 +44,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cldrd_tpu_torch import losses as L
 from cldrd_tpu_torch.data.nway_dataset import NwayBatch, NwayDataset
@@ -43,6 +58,11 @@ from cldrd_tpu_torch.models import (
 from cldrd_tpu_torch.models.convert import (
     dual_encoder_state_dict,
     dual_encoder_to_reference,
+)
+from cldrd_tpu_torch.parallel.multihost import (
+    host_group,
+    local_device,
+    world,
 )
 from cldrd_tpu_torch.utils import AverageMeter, write_train_logs
 
@@ -116,13 +136,16 @@ def batch_mrr_recall(logits: torch.Tensor, labels: torch.Tensor,
     return mrr, within.float().sum() / denom
 
 
-def batch_to_device(batch: NwayBatch, dev: torch.device) -> Dict[str, Any]:
+def batch_to_device(batch: NwayBatch, dev: torch.device,
+                    rows: slice = slice(None)) -> Dict[str, Any]:
     """The device-facing part of a collated batch: token ids as int64,
     labels and teacher scores as fp32; the packed layout when the batch
-    has it, else the flat one."""
+    has it, else the flat one. ``rows`` selects the examples whose tokens
+    go (a data-parallel rank's share); labels and teacher scores stay
+    whole, as the loss is the global batch's."""
 
     def ids(d):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
             dev, torch.int64) for k, v in d.items()}
 
     labels = torch.from_numpy(batch.labels).to(dev)
@@ -137,24 +160,47 @@ def batch_to_device(batch: NwayBatch, dev: torch.device) -> Dict[str, Any]:
     return out
 
 
+def _gather_rows(x: torch.Tensor, rank: int, n: int) -> torch.Tensor:
+    """All ranks' ``x`` concatenated along dim 0; this rank's rows keep
+    their autograd graph, the others arrive as constants (their gradient
+    is their own rank's)."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.detach().contiguous())
+    parts[rank] = x
+    return torch.cat(parts)
+
+
 class Trainer:
     """Config-driven training for one curriculum iteration, on one
-    device (``device=None`` is CUDA)."""
+    device (``device=None`` is CUDA), or data parallel over the ranks of
+    a ``torch.distributed`` group (``cuda`` then means this rank's GPU,
+    ``LOCAL_RANK``)."""
 
     def __init__(self, cfg: TrainConfig, model_config: DistilBertConfig,
                  device=None):
         cfg = cfg.resolve()
-        if cfg.remat:
-            raise NotImplementedError("remat is not ported yet")
-        if cfg.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={cfg.n_devices}: the port trains on one device "
-                "(multi-GPU is not ported yet)")
         if cfg.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+        self.rank, self.world = world()
+        # under a group (even of one rank) the step gathers and reduces
+        self.distributed = dist.is_available() and dist.is_initialized()
+        if cfg.n_devices is not None and cfg.n_devices != self.world:
+            raise ValueError(
+                f"n_devices={cfg.n_devices} but the process group has "
+                f"{self.world} rank(s): launch one process per device "
+                "(torchrun --nproc-per-node N) or leave n_devices unset")
+        # the hosts' own agreements (SIGTERM, checkpoint written) go over
+        # gloo on CPU tensors: no device sync at a step boundary
+        self._host = host_group() if self.world > 1 else None
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                             f"over {self.world} ranks")
+        if cfg.remat and not model_config.remat:
+            model_config = dataclasses.replace(model_config, remat=True)
         self.cfg = cfg
         self.model_config = model_config
-        self.device = resolve_device(device)
+        self.is_first = self.rank == 0
+        self.device = resolve_device(local_device(device))
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
         self.model = NwayDualEncoder(
@@ -164,9 +210,10 @@ class Trainer:
             all_in_batch_neg=cfg.all_in_batch_neg)
         self.run_dir = os.path.join(cfg.run_folder, cfg.experiment_name)
         os.makedirs(self.run_dir, exist_ok=True)
-        cfg.save_yaml(os.path.join(self.run_dir, "config.yaml"))
+        if self.is_first:
+            cfg.save_yaml(os.path.join(self.run_dir, "config.yaml"))
         self._tb = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and self.is_first:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -207,11 +254,19 @@ class Trainer:
             raise KeyError(f"missing weights {missing[:5]}")
 
     def _save(self, step: int, epoch: int) -> str:
-        return save_checkpoint(
-            {"state_dict": dual_encoder_to_reference(self.model.state_dict()),
-             "optimizer": self.optimizer.state_dict(),
-             "scheduler": self.optimizer.scheduler.state_dict(),
-             "step": step, "epoch": epoch}, self.run_dir, step)
+        """Rank 0 writes for the group; every rank calls this at the same
+        step and leaves it once the file exists."""
+        path = os.path.join(self.run_dir, f"checkpoint_{step}.pth.tar")
+        if self.is_first:
+            path = save_checkpoint(
+                {"state_dict": dual_encoder_to_reference(
+                    self.model.state_dict()),
+                 "optimizer": self.optimizer.state_dict(),
+                 "scheduler": self.optimizer.scheduler.state_dict(),
+                 "step": step, "epoch": epoch}, self.run_dir, step)
+        if self._host is not None:
+            dist.barrier(group=self._host)
+        return path
 
     # ---------------------------------------------------------- main loop
 
@@ -240,6 +295,8 @@ class Trainer:
                                                       cfg.share_weights))
             if "adam" in blob:  # a JAX Trainer's .msgpack
                 self.optimizer.load_adam_moments(**blob["adam"])
+                if "accum" in blob:   # optax.MultiSteps: mid-window
+                    self.optimizer.load_accumulator(**blob["accum"])
             else:
                 self.optimizer.load_state_dict(blob["optimizer"])
                 self.optimizer.scheduler.load_state_dict(blob["scheduler"])
@@ -280,12 +337,26 @@ class Trainer:
                 signal.signal(signal.SIGTERM,
                               prev if prev is not None else signal.SIG_DFL)
 
+    def _logits(self, batch: Dict[str, Any], rng: DropoutRNG
+                ) -> torch.Tensor:
+        """The global batch's logits: this rank's embeddings, gathered
+        with every other rank's under a group."""
+        model = self.model
+        q = model.query_embs(batch["query"], rng)
+        if "packed_passages" in batch:
+            p = model.packed_nway_passage_embs(batch["packed_passages"], rng)
+        else:
+            p = model.nway_passage_embs(batch["nway_passages"], rng)
+        if self.distributed:
+            q = _gather_rows(q.float(), self.rank, self.world)
+            p = _gather_rows(p.float(), self.rank, self.world)
+        return model.logits(q, p)
+
     def _step(self, batch: Dict[str, Any], rng: DropoutRNG,
               loss_fn) -> Dict[str, torch.Tensor]:
         """One micro-step: forward, backward, optimizer (every k-th)."""
         cfg = self.cfg
-        logits = self.model(batch["query"], batch.get("nway_passages"),
-                            batch.get("packed_passages"), rng=rng)
+        logits = self._logits(batch, rng)
         labels, teacher = batch["labels"], batch["teacher_scores"]
         if cfg.in_batch_loss:
             pad = labels.new_full((labels.shape[0],
@@ -303,6 +374,12 @@ class Trainer:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if self.distributed:
+            # each rank holds its rows' share of the global gradient
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            grads = [f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
         gnorm = global_norm(grads)
         with torch.no_grad():
             self.optimizer.step(grads)
@@ -341,6 +418,8 @@ class Trainer:
             pending.clear()
 
         first_checked = False
+        local_bz = cfg.batch_size // self.world
+        rows = slice(self.rank * local_bz, (self.rank + 1) * local_bz)
         epoch = start_epoch
         for epoch in range(start_epoch, cfg.num_train_epochs):
             batches = prefetch(dataset.batches(
@@ -352,15 +431,17 @@ class Trainer:
                 if not first_checked:
                     self._validate_token_range(batch)
                     first_checked = True
-                rng = DropoutRNG(cfg.seed, global_step, self.device)
-                metrics = self._step(batch_to_device(batch, self.device),
-                                     rng, loss_fn)
+                rng = DropoutRNG(cfg.seed, global_step, self.device,
+                                 stream=self.rank if self.world > 1
+                                 else None)
+                metrics = self._step(batch_to_device(batch, self.device,
+                                                     rows), rng, loss_fn)
                 global_step += 1
                 pending.append((global_step, metrics))
                 if (global_step % cfg.logging_steps == 0
                         or global_step % cfg.evaluate_steps == 0):
                     flush()
-                if global_step % cfg.logging_steps == 0:
+                if global_step % cfg.logging_steps == 0 and self.is_first:
                     lr = float(self._schedule(global_step // k_acc))
                     kwargs = {}
                     if cfg.reg_lambda > 0.0:
@@ -384,7 +465,7 @@ class Trainer:
                     # metrics were flushed and checked above, so a
                     # non-finite state is never saved under 'raise'
                     saved = self._save(global_step, epoch)
-                if preempt.is_set():
+                if self._preempted(preempt):
                     flush()
                     path = saved or self._save(global_step, epoch)
                     logger.warning("preempted at step %d: checkpoint saved to "
@@ -405,6 +486,16 @@ class Trainer:
         if self._tb is not None:
             self._tb.flush()
         return self._state(global_step, epoch)
+
+    def _preempted(self, preempt: threading.Event) -> bool:
+        """Whether to stop at this step boundary: under a group, when any
+        rank was told to, so that all stop at the same step (a host-side
+        reduction: it does not wait on the device)."""
+        if self._host is None:
+            return preempt.is_set()
+        flag = torch.tensor([int(preempt.is_set())])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._host)
+        return bool(flag.item())
 
     def _state(self, step: int, epoch: int) -> TrainState:
         return TrainState(params=self.model.state_dict(), step=step,

@@ -433,11 +433,16 @@ def test_build_index_from_dataset_matches_reference(tmp_path):
 
 
 def test_sharded_build_is_refused(tmp_path):
+    """A sharded build needs an encode over the same mesh (its parts are
+    the shards' rows); a one-device encode is refused."""
+    from cldrd_tpu_torch.parallel import CORPUS_AXIS, make_mesh
+
     _, tenc = _exact_encoders()
     path = _write_collection(tmp_path / "c.tsv", np.random.default_rng(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tbuilder.build_index_on_device(tenc, _seq("torch", path), 16, _D,
-                                       mesh=object())
+    with pytest.raises(ValueError, match="same mesh"):
+        tbuilder.build_index_on_device(
+            tenc, _seq("torch", path), 16, _D,
+            mesh=make_mesh(2, CORPUS_AXIS, "cpu"))
 
 
 # ------------------------------------------------------------- reranking

@@ -58,3 +58,16 @@ def test_sources_import_nothing_of_jax_or_the_reference():
                      r"cldrd_tpu['\".])", text):
             found.append(f"{os.path.relpath(path, ROOT)}: dynamic import")
     assert not found, found
+
+
+def test_the_walk_reaches_the_parallel_package():
+    """The import check walks every subpackage; the multi-device one
+    (parallel/) is among them."""
+    import pkgutil
+
+    import cldrd_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(cldrd_tpu_torch.__path__,
+                                                   "cldrd_tpu_torch.")}
+    assert {"cldrd_tpu_torch.parallel", "cldrd_tpu_torch.parallel.mesh",
+            "cldrd_tpu_torch.parallel.multihost"} <= names

@@ -149,8 +149,11 @@ def test_cli_rejects_flags_of_later_slices():
     args = t_retrieve.build_parser().parse_args(
         ["--index", "i", "--queries", "q", "--run", "r", "--arch", "bert"])
     assert args.arch == "bert"
-    for argv in (["--shards", "2"], ["--dropout", "0.1"],
-                 ["--profile-dir", "x"]):
+    # corpus sharding came with the multi-GPU slice
+    args = t_retrieve.build_parser().parse_args(
+        ["--index", "i", "--queries", "q", "--run", "r", "--shards", "2"])
+    assert args.shards == 2
+    for argv in (["--dropout", "0.1"], ["--profile-dir", "x"]):
         with pytest.raises(SystemExit):
             t_retrieve.build_parser().parse_args(
                 ["--index", "i", "--queries", "q", "--run", "r", *argv])
@@ -163,7 +166,7 @@ def test_cli_rejects_flags_of_later_slices():
         ["--collection", "c", "--out", "o", "--token-cache", "tc",
          "--bucket-lengths"])
     assert (args.token_cache, args.bucket_lengths) == ("tc", [])
-    # multi-device encode stays with the multi-GPU slice
-    with pytest.raises(SystemExit):
-        t_index.build_parser().parse_args(
-            ["--collection", "c", "--out", "o", "--devices", "2"])
+    # multi-device encode came with the multi-GPU slice
+    args = t_index.build_parser().parse_args(
+        ["--collection", "c", "--out", "o", "--devices", "2"])
+    assert args.devices == 2

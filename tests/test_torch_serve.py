@@ -298,7 +298,7 @@ def test_serve_ivfpq_refine(artifacts):
     ["--reranker", "distilbert", "--rerank-max-length", "513"],
     ["--passages", "missing.tsv"],
     ["--reranker", "bert", "--reranker-size", "tiny",
-     "--rerank-max-length", "65"], ["--shards", "2"],
+     "--rerank-max-length", "65"], ["--shards", "-1"],
     ["--refine-factor", "4"], ["--ivf", "--refine-factor", "0"],
     ["--ivf", "--nprobe", "0"]])
 def test_serve_refuses_what_it_does_not_do(artifacts, argv):

@@ -359,12 +359,17 @@ def test_config_yaml_and_curriculum_match_reference(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
+    # n_devices must equal the process group's ranks (1 without a group)
+    with pytest.raises(ValueError, match="process group has 1 rank"):
         Trainer(TrainConfig(**_cfg_kw(tmp_path, n_devices=2)),
                 DistilBertConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(TrainConfig(**_cfg_kw(tmp_path, remat=True)),
+    t = Trainer(TrainConfig(**_cfg_kw(tmp_path, n_devices=1)),
                 DistilBertConfig.tiny(), device="cpu")
+    assert t.world == 1 and not t.model_config.remat
+    # cfg.remat turns on the model's remat, as in the reference
+    t = Trainer(TrainConfig(**_cfg_kw(tmp_path, remat=True)),
+                DistilBertConfig.tiny(), device="cpu")
+    assert t.model_config.remat
     assert TrainConfig().resolve().pack_passages is False
 
 
@@ -468,9 +473,12 @@ def test_model_config_flags_mean_what_they_mean_in_the_reference():
                               "xla", "--attention-dropout", "0.0"])
     cfg = model_config_from_args(args)
     assert (cfg.attention_impl, cfg.attention_dropout) == ("xla", 0.0)
-    with pytest.raises(NotImplementedError, match="fused_qkv"):
-        model_config_from_args(parser.parse_args(
-            ["--model-config", json.dumps({**ref, "fused_qkv": True})]))
+    # the encoder's memory and speed options read as the reference's keys
+    opts = {"fused_qkv": True, "softmax_in_compute_dtype": True,
+            "remat": True, "remat_policy": "dots"}
+    cfg = model_config_from_args(parser.parse_args(
+        ["--model-config", json.dumps({**ref, **opts})]))
+    assert {k: getattr(cfg, k) for k in opts} == opts
 
 
 def test_sigterm_checkpoints_at_the_step_boundary_and_resumes(tmp_path):
