@@ -117,7 +117,14 @@ Phases (each raises on any failure; the script then exits non-zero):
    searches), and reconstruct the CLI's flat store rounded to bf16 or
    quantized. range_search over a 1,048,576 x 768 int8 store at two
    depths (K1 at k=1024 and 2048) must EQUAL an exact oracle. Every TSV
-   and JSONL parse of the path must take the native parsers.
+   and JSONL parse of the path must take the native parsers. The bf16
+   k=100 retrieve runs again with --profile-dir (utils/profiling.py's
+   trace around the search alone), in a process of its own as a user
+   runs it (its launches join the window): its run file must EQUAL the
+   untraced one's, the trace's K1 and K2 kernel events must equal the
+   call's launch counts (K1's > 0), and no attention kernel may be in
+   it (the query encode's K5 lies outside the window); traced and
+   untraced QPS and the trace's size are logged.
 6. teacher: a MiniLM-L6 cross-encoder (BertConfig.minilm_l6: 6 x 384,
    12 heads) with random weights from --seed, written as an HF
    BertForSequenceClassification state_dict. cli.retrieve_queries encodes
@@ -174,8 +181,11 @@ Phases (each raises on any failure; the script then exits non-zero):
    to its direct search. build_index_on_device(mesh=) from the
    pipeline's token caches (bf16, int8, flat, bucketed) EQUALs the
    one-device build at a device's share of the batch, by id; cli.index
-   --devices 0 and cli.retrieve --shards 0 write the pipeline's run file
-   byte for byte. Four flat train steps on a torch.distributed group of
+   --devices 0 and cli.retrieve --shards 0 --profile-dir (a process of
+   its own) write the pipeline's run file byte for byte, and the one
+   trace holds kernels of every visible device and as many K1/K2 events
+   as the call launched (none: k=1000 over 32,768 rows streams). Four
+   flat train steps on a torch.distributed group of
    spawned ranks (NCCL, one a GPU; with one GPU, two gloo ranks share
    cuda:0), in three jobs: bf16 at dropout 0.1 (K3/K4 on every rank),
    bf16 at dropout 0 and fp32 with the einsum attention at dropout 0. The
@@ -231,6 +241,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1819,6 +1830,129 @@ def _check_run_file(path, n_q, k, n_pass):
             raise AssertionError(f"{path}: query {qid} pids malformed")
 
 
+# the attention kernels' CUDA functions (K3/K4/K5 and the layout check)
+ATTN_KERNEL = re.compile(r"\battn_\w+_kernel\b")
+
+
+def _trace_kernels(logdir):
+    """The kernel events of the one trace that ``utils.profiling.trace``
+    wrote into ``logdir``, counted by device id: K1's and K2's CUDA
+    functions (either route, ops/*.py::KERNEL_NAMES), the attention
+    kernels, and every kernel."""
+    from cldrd_tpu_torch.ops import extract_topk, fused_binmax
+    from cldrd_tpu_torch.utils.profiling import read_trace
+
+    classes = {
+        name: re.compile(r"\b(?:%s)\b" % "|".join(mod.KERNEL_NAMES.values()))
+        for name, mod in (("extract_topk", extract_topk),
+                          ("fused_binmax", fused_binmax))}
+    classes["attention"] = ATTN_KERNEL
+    out = {name: {} for name in (*classes, "all")}
+    events = read_trace(logdir)
+    kernels = {}
+    for evt in events:
+        if evt.get("cat") != "kernel":
+            continue
+        kernels[evt["args"].get("correlation")] = evt
+        dev = int(evt["args"]["device"])
+        for name, pat in classes.items():
+            if pat.search(evt["name"]):
+                out[name][dev] = out[name].get(dev, 0) + 1
+        out["all"][dev] = out["all"].get(dev, 0) + 1
+    # kernel launches the host recorded whose kernel the trace lacks, by
+    # where they fell in the window
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e["name"].startswith(("cudaLaunchKernel",
+                                          "cuLaunchKernel"))]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X" and "ts" in e]
+    t0, t1 = min(a for a, _ in spans), max(b for _, b in spans)
+    out["lost_launches_ms"] = [
+        [round((e["ts"] - t0) / 1e3, 3), round((t1 - e["ts"]) / 1e3, 3)]
+        for e in launches if e["args"].get("correlation") not in kernels]
+    return out
+
+
+def _trace_bytes(logdir):
+    return sum(os.path.getsize(os.path.join(logdir, f))
+               for f in os.listdir(logdir))
+
+
+def _check_traced_search(tag, counts, launches, devices):
+    """A traced search's kernel events (``_trace_kernels``) against the
+    launch counters over the call (``launches``): K1's and K2's events
+    equal their launches and fall on every device of ``devices`` alike;
+    every device of ``devices``, and no other, ran kernels in the window
+    (its shard's search); no attention kernel ran there."""
+    for name in ("extract_topk", "fused_binmax"):
+        seen = sum(counts[name].values())
+        if seen != launches[name]:
+            raise AssertionError(
+                f"{tag}: the trace holds {seen} {name} kernel events for "
+                f"{launches[name]} launches ({counts[name]} by device; "
+                f"launches without a kernel event at [ms after the first "
+                f"event, ms before the last]: {counts['lost_launches_ms']})")
+    if set(counts["all"]) != set(devices) or not all(
+            counts["all"].values()):
+        raise AssertionError(f"{tag}: kernel events by device "
+                             f"{counts['all']}, wanted some on each of "
+                             f"{sorted(set(devices))} and none elsewhere")
+    per_dev = {d: counts["extract_topk"].get(d, 0)
+               + counts["fused_binmax"].get(d, 0) for d in devices}
+    if len(set(per_dev.values())) != 1:
+        raise AssertionError(f"{tag}: search kernel events by device "
+                             f"{per_dev}, wanted the same on each")
+    if counts["attention"]:
+        raise AssertionError(f"{tag}: attention kernels in the search's "
+                             f"trace: {counts['attention']}")
+
+
+_RETRIEVE_CALLS = """
+import contextlib, io, json, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke
+from cldrd_tpu_torch.cli import retrieve
+out = []
+for argv in {argvs!r}:
+    chip_smoke.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = retrieve.main(argv)
+    out.append({{"rc": rc, "s": time.perf_counter() - t0,
+                "lines": buf.getvalue().strip().splitlines(),
+                "launches": chip_smoke.read_launches()}})
+print(json.dumps(out))
+"""
+
+
+def _retrieve_calls(argvs):
+    """cli.retrieve with each of ``argvs`` in turn, in one process of its
+    own, as a user runs it: torch.profiler on the card loses the first
+    device records of a session, the more the longer CUPTI has run in the
+    process (tools/trace_check.py; PERF.md §6), and this process has
+    profiled since its kernels phase. Returns, for each call, its stdout
+    lines, seconds and launches (``read_launches`` keys)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _RETRIEVE_CALLS.format(
+            root=ROOT, argvs=[list(a) for a in argvs])],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if out.returncode:
+        raise AssertionError(f"retrieve process exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    calls = json.loads(out.stdout.strip().splitlines()[-1])
+    for argv, call in zip(argvs, calls):
+        if call["rc"] != 0:
+            raise AssertionError(f"retrieve {argv[:2]} returned {call['rc']}")
+    return calls
+
+
+def _add_launches(window, more):
+    for k, v in more.items():
+        window[k] = window.get(k, 0) + v
+    return window
+
+
 def _write_training_files(work, n_q, n_pass, seed):
     """Curriculum files for label modes 8, 9 and 10 (5/10/20 relT
     passages, 25/20/10 negatives split most-hard / semi-hard): each query's
@@ -2159,15 +2293,19 @@ def phase_pipeline(ctx):
         f"{enc['ivf_buckets']} buckets x {enc['ivf_slot']} in "
         f"{enc['ivf_build_s']:.1f} s")
     results = {"index_s": t_index, **enc}
+
+    def retrieve_argv(run, hbm, k):
+        return ["--index", idx, "--queries", paths["queries"], "--run", run,
+                "--topk", str(k), "--max-length", str(TRAIN_LQ),
+                "--search-batch-size", str(SEARCH_BATCH), "--hbm-dtype", hbm,
+                "--attention-impl", "pallas", *common]
+
     for hbm, k in (("bfloat16", K), ("int8", K),
                    ("bfloat16", K_PIPELINE_EXTRACT)):
         run = os.path.join(work, f"run_{hbm}_{k}.tsv")
         k1_before = k1_mod.LAUNCHES
-        lines, t_ret = _call_cli(cli_retrieve.main, [
-            "--index", idx, "--queries", paths["queries"], "--run", run,
-            "--topk", str(k), "--max-length", str(TRAIN_LQ),
-            "--search-batch-size", str(SEARCH_BATCH), "--hbm-dtype", hbm,
-            "--attention-impl", "pallas", *common])
+        lines, t_ret = _call_cli(cli_retrieve.main,
+                                 retrieve_argv(run, hbm, k))
         stats = json.loads(lines[-1])
         _check_run_file(run, n_q, k, n_pass)
         metrics = json.loads("\n".join(_call_cli(cli_evaluate.main, [
@@ -2187,6 +2325,7 @@ def phase_pipeline(ctx):
             f"Recall@1000={metrics['Recall@1000']:.4f}")
     if results[f"bfloat16_k{K_PIPELINE_EXTRACT}"]["extract_topk_launches"] <= 0:
         raise AssertionError("pipeline retrieve launched no extract_topk")
+    results["traced"] = _traced_retrieve(work, retrieve_argv, results)
     results["buckets"] = _pipeline_buckets(ctx, work, idx, common, results)
     results["on_device"] = _on_device_builds(ctx, work, idx)
     results["range_search"] = _range_search_check(ctx)
@@ -2198,6 +2337,60 @@ def phase_pipeline(ctx):
     log(f"[pipeline] every TSV/JSONL parse of the path took the native "
         f"parsers: {used}")
     ctx["pipeline"] = results
+    # the traced retrieve's process launched kernels of this path too
+    return _add_launches(read_launches(), results["traced"].pop("window"))
+
+
+def _traced_retrieve(work, retrieve_argv, results):
+    """The bf16 k=100 retrieve (K1's extract route) again with
+    --profile-dir, in a process of its own between two untraced calls:
+    every run file EQUAL to the pipeline's, and the trace's K1/K2 kernel
+    events equal to the traced call's launches (K1's > 0), on cuda:0,
+    with no attention kernel (the query encode's K5 runs before the
+    window). The process's launches (``window``) join the pipeline's."""
+    k = K_PIPELINE_EXTRACT
+    logdir = os.path.join(work, f"trace_k{k}")
+    runs = [os.path.join(work, f"run_bfloat16_{k}_{tag}.tsv")
+            for tag in ("before", "traced", "after")]
+    # untraced, traced, untraced in one process: the first call also
+    # pays the process's first launches
+    calls = _retrieve_calls([
+        retrieve_argv(runs[0], "bfloat16", k),
+        [*retrieve_argv(runs[1], "bfloat16", k), "--profile-dir", logdir],
+        retrieve_argv(runs[2], "bfloat16", k)])
+    window = {}
+    for call in calls:
+        _add_launches(window, call["launches"])
+    traced = calls[1]["launches"]
+    launches = {n: traced[n] for n in ("extract_topk", "fused_binmax")}
+    with open(os.path.join(work, f"run_bfloat16_{k}.tsv"), "rb") as f:
+        want = f.read()
+    for run in runs:
+        with open(run, "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"{os.path.basename(run)}: another run "
+                                     "file than the pipeline's own call")
+    if launches["extract_topk"] <= 0:
+        raise AssertionError("the traced retrieve launched no extract_topk")
+    counts = _trace_kernels(logdir)
+    _check_traced_search("pipeline --profile-dir", counts, launches, [0])
+    qps = [json.loads(c["lines"][-1])["qps"] for c in calls]
+    out = {"qps_untraced_traced_untraced": qps,
+           "retrieve_s": [c["s"] for c in calls],
+           "trace_bytes": _trace_bytes(logdir), "launches": launches,
+           "kernel_events": {n: sum(counts[n].values()) for n in (
+               "extract_topk", "fused_binmax", "attention", "all")},
+           "window": window}
+    log(f"[pipeline] retrieve --profile-dir (bf16, k={k}) in a process of "
+        f"its own, between two untraced calls: every run file EQUAL the "
+        f"pipeline's; trace {out['trace_bytes']} bytes, "
+        f"{out['kernel_events']['all']} kernel events, of them K1 "
+        f"{out['kernel_events']['extract_topk']} / K2 "
+        f"{out['kernel_events']['fused_binmax']} (= launches {launches}), "
+        f"no attention kernel; search QPS untraced / traced / untraced "
+        f"{qps[0]:.1f} / {qps[1]:.1f} / {qps[2]:.1f}; seconds a call "
+        + " / ".join(f"{c['s']:.2f}" for c in calls))
+    return out
 
 
 def _pallas_model_config():
@@ -3682,9 +3875,10 @@ def _multi_builds(ctx, mesh):
     (bf16 and int8, flat and bucketed) against the one-device build at a
     device's share of the batch: the same ids and EQUAL rows and scales,
     by id. Then cli.index --devices 0 (512 rows a device) and
-    cli.retrieve --shards 0 write the pipeline's run file again."""
+    cli.retrieve --shards 0 --profile-dir (a process of its own) write
+    the pipeline's run file again, and its trace holds kernels of every
+    device."""
     from cldrd_tpu_torch.cli import index as cli_index
-    from cldrd_tpu_torch.cli import retrieve as cli_retrieve
     from cldrd_tpu_torch.cli.common import load_dual_encoder
     from cldrd_tpu_torch.data import TokenCacheDataset
     from cldrd_tpu_torch.index import build_index_on_device, make_encode_fn
@@ -3731,18 +3925,32 @@ def _multi_builds(ctx, mesh):
         "--max-length", str(TRAIN_LP), "--batch-size", str(512 * ndev),
         "--devices", "0", *common])
     run = os.path.join(WORK, "multi_run.tsv")
-    _call_cli(cli_retrieve.main, [
+    logdir = os.path.join(WORK, "multi_trace")
+    call, = _retrieve_calls([[
         "--index", idx, "--queries", ctx["corpus"]["queries"], "--run", run,
         "--topk", str(K), "--max-length", str(TRAIN_LQ),
         "--search-batch-size", str(SEARCH_BATCH), "--hbm-dtype", "bfloat16",
-        "--shards", "0", *common])
+        "--shards", "0", "--profile-dir", logdir, *common]])
+    window = call["launches"]
+    launches = {n: window[n] for n in ("extract_topk", "fused_binmax")}
     ref = os.path.join(work, f"run_bfloat16_{K}.tsv")
     with open(run, "rb") as a, open(ref, "rb") as b:
         if a.read() != b.read():
             raise AssertionError("cli.index --devices 0 + cli.retrieve "
                                  "--shards 0 wrote another run file than "
                                  "the pipeline's")
-    res["cli"] = {"index_s": t_index, **json.loads(lines[-1])}
+    counts = _trace_kernels(logdir)
+    _check_traced_search("multi retrieve --shards 0 --profile-dir", counts,
+                         launches, range(ndev))
+    res["cli"] = {"index_s": t_index, **json.loads(lines[-1]),
+                  "traced_qps": json.loads(call["lines"][-1])["qps"],
+                  "trace_bytes": _trace_bytes(logdir),
+                  "search_launches": launches,
+                  "search_events_by_device": {
+                      d: counts["extract_topk"].get(d, 0)
+                      + counts["fused_binmax"].get(d, 0) for d in range(ndev)},
+                  "kernel_events_by_device": counts["all"],
+                  "window": window}
     log("[multi] sharded on-device builds from the token caches EQUAL the "
         f"one-device builds by id (rows, scales, ids; {per} rows a device "
         "a batch): " + "; ".join(
@@ -3750,7 +3958,14 @@ def _multi_builds(ctx, mesh):
             f"passages/s)" for k, v in res.items() if k != "cli")
         + f"; cli.index --devices 0 ({ndev} GPU(s), "
         f"{res['cli']['passages_per_s']:.1f} passages/s) + cli.retrieve "
-        "--shards 0 wrote the pipeline's run file byte for byte")
+        "--shards 0 --profile-dir wrote the pipeline's run file byte for "
+        f"byte ({res['cli']['traced_qps']:.1f} QPS traced); its trace "
+        f"({res['cli']['trace_bytes']} bytes) holds kernels of every "
+        f"device {res['cli']['kernel_events_by_device']}, K1/K2 events "
+        f"{res['cli']['search_events_by_device']} by device for launches "
+        f"{res['cli']['search_launches']}"
+        + ("" if any(launches.values()) else
+           f" (k={K} over {N_PIPELINE} rows takes the streaming route)"))
     return res
 
 
@@ -4180,11 +4395,10 @@ def phase_multi(ctx):
     res["options"] = _multi_options(ctx)
     ctx["multi"] = res
     shutil.rmtree(WORK, ignore_errors=True)
-    # the spawned ranks' launches belong to the path's window too
-    window = read_launches()
-    for k, v in res["dp"].pop("rank_launches").items():
-        window[k] = window.get(k, 0) + v
-    return window
+    # the spawned ranks' and the traced retrieve's launches belong to the
+    # path's window too
+    window = _add_launches(read_launches(), res["dp"].pop("rank_launches"))
+    return _add_launches(window, res["builds"]["cli"].pop("window"))
 
 
 ROUTES = ("sm90", "tiled", "plain")

@@ -10,6 +10,7 @@ into a device ``FlatIPIndex``, search exactly, and write
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import sys
@@ -20,6 +21,7 @@ from cldrd_tpu_torch.device import dtype_from_name
 from cldrd_tpu_torch.index import encode_dataset, load_index, make_encode_fn
 from cldrd_tpu_torch.parallel import CORPUS_AXIS, make_mesh
 from cldrd_tpu_torch.search import retrieve_to_run_file
+from cldrd_tpu_torch.utils.profiling import trace
 
 from .common import (
     add_model_args,
@@ -50,6 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hbm-dtype", default="bfloat16",
                    choices=("bfloat16", "float32", "int8"),
                    help="device store dtype (int8 = per-row-scaled codes)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the search phase "
+                        "(host ops and every device's kernels; the query "
+                        "encode and the index load stay outside it) into "
+                        "this directory: one *.pt.trace.json that "
+                        "Perfetto, chrome://tracing and TensorBoard load")
     p.add_argument("--shards", type=int, default=1,
                    help="shard the corpus over this many local devices "
                         "(per-shard exact top-k on each device, merged on "
@@ -82,9 +90,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     index = load_index(args.index, dtype=dtype_from_name(args.hbm_dtype),
                        precision=args.precision, device=args.device,
                        mesh=mesh)
-    stats = retrieve_to_run_file(index, q_embs, qids, args.run,
-                                 topk=args.topk,
-                                 batch_size=args.search_batch_size)
+    ctx = (trace(args.profile_dir) if args.profile_dir
+           else contextlib.nullcontext())
+    with ctx:
+        stats = retrieve_to_run_file(index, q_embs, qids, args.run,
+                                     topk=args.topk,
+                                     batch_size=args.search_batch_size)
     stats["rescued_queries"] = index.rescued_queries
     print(json.dumps({"queries": len(qids),
                       **{k: round(v, 3) for k, v in stats.items()}}))

@@ -43,6 +43,9 @@ from .fused_binmax import block_scores
 LAUNCHES = 0  # kernel launches through extract_topk()
 # launches by C entry point (the route each took)
 ENTRY_LAUNCHES = {"extract_topk_launch": 0, "extract_topk_sm90_launch": 0}
+# the CUDA function each route launches once a call, as a trace names it
+KERNEL_NAMES = {"sm90": "extract_topk_sm90_kernel",
+                "generic": "extract_topk_kernel"}
 SM90_BIN_ROWS, SM90_MAX_DIM = 128, 768
 
 SUPER_ROWS = 2048

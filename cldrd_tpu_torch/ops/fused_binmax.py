@@ -33,6 +33,9 @@ from . import _build
 LAUNCHES = 0  # kernel launches through fused_binmax()
 # launches by C entry point (the route each took)
 ENTRY_LAUNCHES = {"fused_binmax_launch": 0, "fused_binmax_sm90_launch": 0}
+# the CUDA function each route launches once a call, as a trace names it
+KERNEL_NAMES = {"sm90": "fused_binmax_sm90_kernel",
+                "generic": "fused_binmax_kernel"}
 BIN_SIZES = (8, 16, 32, 64, 128)
 SM90_MIN_DIM, SM90_MAX_DIM = 128, 768
 

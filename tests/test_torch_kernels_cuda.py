@@ -1214,3 +1214,73 @@ def test_quantize_rows_on_the_card_equals_numpy():
     want_codes, want_scales = quantize_rows(c)
     assert np.array_equal(scales.cpu().numpy(), want_scales)
     assert np.array_equal(codes.cpu().numpy(), want_codes)
+
+
+@pytest.mark.cuda
+def test_trace_holds_one_k1_kernel_event_per_launch(tmp_path):
+    """utils.profiling.trace around one K1 launch on the card writes one
+    kernel event of the function the route names (KERNEL_NAMES), on the
+    launching device, and none of the other route's."""
+    import re
+
+    from cldrd_tpu_torch.utils.profiling import read_trace, trace
+
+    dev = _device()
+    q, c, ids, scales = _inputs(dev, 512, 16 * 2048, 768, torch.int8, 4)
+    route = k1.kernel_route(q.dtype, c.dtype, 768, 128)
+    assert route == "sm90"
+    k1.extract_topk(q, c, ids, 5, 8, 128, scales)  # build and load first
+    torch.cuda.synchronize()
+    before = k1.LAUNCHES
+    with trace(str(tmp_path)):
+        k1.extract_topk(q, c, ids, 5, 8, 128, scales)
+    assert k1.LAUNCHES == before + 1
+    kernels = [e for e in read_trace(str(tmp_path))
+               if e.get("cat") == "kernel"]
+    by_route = {r: [e for e in kernels
+                    if re.search(rf"\b{name}\b", e["name"])]
+                for r, name in k1.KERNEL_NAMES.items()}
+    assert len(by_route[route]) == 1, [e["name"] for e in kernels]
+    assert by_route["generic"] == []
+    assert by_route[route][0]["args"]["device"] == torch.cuda.current_device()
+
+
+@pytest.mark.cuda
+def test_trace_holds_every_shards_search_kernels(tmp_path):
+    """trace around a sharded search over every visible GPU (two shards
+    of cuda:0 with one) holds one K1 kernel event a shard, each on its
+    shard's device: the trace waits for every device before it stops."""
+    import collections
+    import re
+
+    from cldrd_tpu_torch.parallel import CORPUS_AXIS, Mesh, make_mesh
+    from cldrd_tpu_torch.parallel import shard_rows
+    from cldrd_tpu_torch.utils.profiling import read_trace, trace
+
+    _device()
+    n_gpu = torch.cuda.device_count()
+    mesh = (make_mesh(n_gpu, CORPUS_AXIS) if n_gpu > 1
+            else Mesh((torch.device("cuda", 0),) * 2, CORPUS_AXIS))
+    n = mesh.size * 16 * 2048
+    g = torch.Generator().manual_seed(5)
+    codes = torch.randint(-127, 128, (n, 768), generator=g,
+                          dtype=torch.int8)
+    scales = torch.rand(n, generator=g) + 0.5
+    ids = torch.arange(n, dtype=torch.int32)
+    q = torch.randint(-4, 5, (512, 768), generator=g).to(
+        mesh.devices[0], torch.bfloat16)
+    c, i, s = (shard_rows(x, mesh) for x in (codes, ids, scales))
+    mips.sharded_topk(q, c, i, 100, mesh, row_scales=s)  # build and load
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+    before = k1.LAUNCHES, k2.LAUNCHES
+    with trace(str(tmp_path)):
+        mips.sharded_topk(q, c, i, 100, mesh, row_scales=s)
+    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]) == (
+        mesh.size, 0)  # K1's extract route, once a shard
+    names = [*k1.KERNEL_NAMES.values(), *k2.KERNEL_NAMES.values()]
+    search = re.compile(r"\b(?:%s)\b" % "|".join(names))
+    by_dev = collections.Counter(
+        int(e["args"]["device"]) for e in read_trace(str(tmp_path))
+        if e.get("cat") == "kernel" and search.search(e["name"]))
+    assert by_dev == collections.Counter(d.index for d in mesh.devices)
