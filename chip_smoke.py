@@ -52,10 +52,14 @@ Phases (each raises on any failure; the script then exits non-zero):
    is timed at B=512 over 1M bf16 rows and at B=2048 over the int8
    store's first 1,769,472 rows (scales) beside fused_binmax.cu forced on
    the same inputs, its plain version and a bare bf16 torch.matmul. K5
-   takes attention_infer.cu at the query encode (B=512, L=30) and the
-   sm90 forward at B=240, L=256, each held to its plain version with
-   the query tower's padding (EQUAL on exact inputs) and timed beside
-   attention.cu's tiled forward forced on the same inputs and SDPA. K5
+   takes attention_infer.cu at the query encode (B=512, L=30) and
+   attention_infer_d64.cu at B=240, L=256, each held to its plain
+   version with the query tower's padding and with a mask that has
+   holes (EQUAL on exact inputs); the first is timed beside
+   attention.cu's tiled forward forced on the same inputs, the second
+   beside the sm90 forward at p=0 forced (its earlier route), at
+   B=240, L=256 and at the flat index build's 512x256 with its passage
+   padding (32-86 real keys of 256), each also beside SDPA. K5
    at the MiniLM-L6 teacher's shape (B=128, L=256, H=12, D=32, bf16,
    pairs of 39-90 real tokens) takes attention_infer_d32.cu: within
    2e-2 of its plain version on normal data, EQUAL on exact inputs (two
@@ -64,11 +68,13 @@ Phases (each raises on any failure; the script then exits non-zero):
    on the same inputs (its earlier route), the plain version, its
    bound and SDPA, with the blocks an SM holds. K5 at every shape of
    the length buckets' ladder (passages at batch 512, L 256: 4096x32,
-   2048x64 on attention_infer.cu, 1024x128, 512x256 on the sm90
-   forward; the teacher at batch 128: 1024x32 to 128x256 on
-   attention_infer_d32.cu), with a bucket's padding, one row and the
+   2048x64 on attention_infer.cu, 1024x128, 512x256 on
+   attention_infer_d64.cu; the teacher at batch 128: 1024x32 to 128x256
+   on attention_infer_d32.cu), with a bucket's padding, one row and the
    last eighth of the batch all masked: within 2e-2 of its plain
-   version, EQUAL on exact inputs, timed beside its bound and SDPA.
+   version, EQUAL on exact inputs (attention_infer_d64.cu also with a
+   mask that has holes), timed beside its bound and SDPA, and
+   attention_infer_d64.cu beside the sm90 forward forced.
    Every time in the kernels line is a device time: the summed
    durations of the kernels one call launches
    (torch.profiler; a trace whose kernel counts show lost records is
@@ -128,7 +134,7 @@ Phases (each raises on any failure; the script then exits non-zero):
 6. teacher: a MiniLM-L6 cross-encoder (BertConfig.minilm_l6: 6 x 384,
    12 heads) with random weights from --seed, written as an HF
    BertForSequenceClassification state_dict. cli.retrieve_queries encodes
-   the 32,768 passages (K5 through the sm90 forward) and searches an
+   the 32,768 passages (K5 through attention_infer_d64.cu) and searches an
    index of the 1,024 queries; cli.create_training_data --teacher-arch
    bert scores the first 512 queries x their top 100 of the pipeline's
    run (51,200 pairs, bf16, B=128, L=256, --attention-impl pallas) and
@@ -211,9 +217,11 @@ read just after it: a kernel its path must reach with no launch there
 fails the run, every K1 and K2 launch of a window must have gone through
 the Hopper entry points (extract_topk_sm90_launch,
 fused_binmax_sm90_launch), and every K5 launch through those its path
-names (K5_ENTRIES: attn_infer_short_launch and the sm90 forward on the
-train, pipeline and multi paths, attn_infer_d32_launch too on the
-teacher and serve paths); K5 is also counted by (entry point, B, L)
+names (K5_ENTRIES: attn_infer_short_launch and attn_infer_d64_launch
+on the train, pipeline and multi paths, attn_infer_d32_launch too on
+the teacher and serve paths; the sm90 forward's and the tiled forward's
+K5 counts are read and must stay 0); K5 is also counted by (entry
+point, B, L)
 (ops/attention.py::SHAPE_LAUNCHES). The kernels line sums the six
 windows, K5's launches by shape included. The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
@@ -1152,8 +1160,9 @@ def _query_tower_mask(ctx, b, length):
 
 def _infer_checks(ctx):
     """K5 through flash_attention at the query encode (B=512, L=30: the
-    short-row kernel of attention_infer.cu) and at B=240, L=256 (the sm90
-    forward at p=0), with the query tower's padding: within 2e-2 of the
+    short-row kernel of attention_infer.cu) and at B=240, L=256
+    (attention_infer_d64.cu), with the query tower's padding (one row
+    with no real key) and with a mask that has holes: within 2e-2 of the
     largest magnitude of attention_plain on normal data; on exact inputs
     (every score of a row equal: q = 0 and k one-hot, or q one-hot and
     every key e_0; v one-hot over keys) EQUAL to it."""
@@ -1166,32 +1175,31 @@ def _infer_checks(ctx):
         shape = (b, length, HEADS, HEAD_DIM)
         q, k, v = (torch.randn(shape, generator=ctx["gen"], device=dev)
                    .to(bf16) for _ in range(3))
-        mask = _query_tower_mask(ctx, b, length)
-        out = att.flash_attention(q, k, v, mask)
-        ref = att.attention_plain(q, k, v, mask)
-        err = (out.float() - ref.float()).abs().max().item()
-        if not err <= 2e-2 * ref.float().abs().max().item():
-            raise AssertionError(f"K5 {route} {tag}: max abs err {err:.3g}")
-        pos = torch.arange(length, device=dev)
-        hot = (pos[:, None] % HEAD_DIM
-               == torch.arange(HEAD_DIM, device=dev)[None, :])
-        hot = hot[None, :, None, :].expand(shape).to(bf16).contiguous()
-        zero = torch.zeros(shape, dtype=bf16, device=dev)
-        e0 = zero.clone()
-        e0[..., 0] = 1
-        for form, qx, kx in (("q0", zero, hot), ("k0", hot, e0)):
-            got = att.flash_attention(qx, kx, hot, mask)
-            want = att.attention_plain(qx, kx, hot, mask)
-            if not (want.abs().max() > 0 and torch.equal(got, want)):
-                raise AssertionError(f"K5 {route} {tag} exact ({form}): "
-                                     f"{int((got != want).sum())} elements "
-                                     "differ from the plain version")
+        masks = {"query-tower padding": _query_tower_mask(ctx, b, length),
+                 "holes": _holed_mask(ctx, b, length)}
+        errs = {}
+        for mtag, mask in masks.items():
+            out = att.flash_attention(q, k, v, mask)
+            ref = att.attention_plain(q, k, v, mask)
+            errs[mtag] = err = (out.float() - ref.float()).abs().max().item()
+            if not err <= 2e-2 * ref.float().abs().max().item():
+                raise AssertionError(f"K5 {route} {tag} ({mtag}): max abs "
+                                     f"err {err:.3g}")
+            for form, xs in _exact_forms(dev, shape).items():
+                got = att.flash_attention(*xs, mask)
+                want = att.attention_plain(*xs, mask)
+                if not (want.abs().max() > 0 and torch.equal(got, want)):
+                    raise AssertionError(
+                        f"K5 {route} {tag} exact ({form}, {mtag}): "
+                        f"{int((got != want).sum())} elements differ from "
+                        "the plain version")
+            del out, ref
         log(f"[kernels] K5 {route} {tag} B={b} L={length} bf16, query-tower "
-            f"padding: agrees with the plain version (max abs err {err:.3g};"
-            " tolerance 2e-2 of the largest magnitude), EQUAL on exact "
-            "inputs (two forms)")
-        ctx["k5_err"] = max(ctx.get("k5_err", 0.0), err)
-        del q, k, v, hot, zero, e0
+            f"padding and holes: agrees with the plain version (max abs err "
+            f"{errs}; tolerance 2e-2 of the largest magnitude), EQUAL on "
+            "exact inputs (two forms)")
+        ctx["k5_err"] = max(ctx.get("k5_err", 0.0), *errs.values())
+        del q, k, v, masks
     torch.cuda.empty_cache()
 
 
@@ -1279,8 +1287,10 @@ def _time_train_attention(ctx, tag, b, segments):
 def _time_attention(ctx):
     """K3 and K4 at the passage tower's shape (B=240, L=256) and at the
     packed one (64 rows of 256 with segments), K5 at the query encode's
-    (B=512, L=30), each against its plain version, its bound and one
-    PyTorch call computing the same function."""
+    (B=512, L=30), at the passage tower's and at the flat index build's
+    (512 x 256 with its passage padding), each against its plain
+    version, its bound, its earlier route forced and one PyTorch call
+    computing the same function."""
     import torch.nn.functional as F
 
     from cldrd_tpu_torch.ops import attention as att
@@ -1289,13 +1299,20 @@ def _time_attention(ctx):
     _time_train_attention(ctx, "packed", 64, True)
     rows = ctx["timings"]
     bf16 = torch.bfloat16
-    # K5 at the query encode (B=512, L=30: the short-row kernel) and at
-    # the passage shape (B=240, L=256: the sm90 forward at p=0), each
-    # beside the tiled forward of attention.cu forced on the same inputs
-    for name, tag, b, length in (
-            ("attention_infer", "encode", SEARCH_BATCH, TRAIN_LQ),
-            ("attention_infer_sm90", "L256", TRAIN_BZ * NWAY, TRAIN_LP)):
+    # K5 at the query encode (B=512, L=30: the short-row kernel) beside the
+    # tiled forward of attention.cu forced on the same inputs; at the
+    # passage shape (B=240, L=256) and at the flat index build's (512 x
+    # 256, 32-86 real keys of 256), attention_infer_d64.cu beside the
+    # sm90 forward at p=0 forced (the earlier route of both)
+    for name, tag, b, length, old in (
+            ("attention_infer", "encode", SEARCH_BATCH, TRAIN_LQ, "tiled"),
+            ("attention_infer_d64", "L256", TRAIN_BZ * NWAY, TRAIN_LP,
+             "sm90"),
+            ("attention_infer_d64", "flat_512x256", SEARCH_BATCH, TRAIN_LP,
+             "sm90")):
         q, k, v, _, mask, _ = _attn_inputs(ctx, b, length, bf16, False)
+        if tag.startswith("flat"):
+            mask = _padded_mask(ctx, b, length)
         amask = (mask != 0)[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         nb5, ops5 = _attn_bytes_ops(b, length, bf16, 4, 2,
@@ -1303,29 +1320,34 @@ def _time_attention(ctx):
         k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=amask)
-        with _train_attention_route("tiled"):  # K5's route too
-            t_tiled = device_ms(k5)
-        rows.setdefault(name, {})[tag] = dict(
-            ms=device_ms(k5), tiled_ms=t_tiled,
-            route=att._kernel_route(bf16, length, HEAD_DIM, "infer"),
-            plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
-                               reps=3, warmup=1),
-            bound=bound_ms(nb5, ops5, "bf16"), library_ms=device_ms(lib),
-            B=b, L=length)
+        forced = (_train_attention_route("tiled") if old == "tiled"
+                  else _k5_sm90())
+        with forced:
+            t_old = device_ms(k5)
+        rows.setdefault(name, {})[tag] = {
+            "ms": device_ms(k5), f"{old}_ms": t_old,
+            "route": att._kernel_route(bf16, length, HEAD_DIM, "infer"),
+            "plain_ms": device_ms(lambda: att.attention_plain(q, k, v, mask),
+                                  reps=3, warmup=1),
+            "bound": bound_ms(nb5, ops5, "bf16"), "library_ms": device_ms(lib),
+            "real_keys": int(mask.sum()), "B": b, "L": length}
         del q, k, v, mask, amask, qt, kt, vt
+    olds = {"tiled_ms": "the tiled kernels of attention.cu",
+            "sm90_ms": "the sm90 forward at p=0"}
     for name, tag in (("attention_train_fwd", "train"),
                       ("attention_train_bwd", "train"),
                       ("attention_train_fwd", "packed"),
                       ("attention_train_bwd", "packed"),
                       ("attention_infer", "encode"),
-                      ("attention_infer_sm90", "L256")):
+                      ("attention_infer_d64", "L256"),
+                      ("attention_infer_d64", "flat_512x256")):
         r = rows[name][tag]
-        tiled = (f" (the tiled kernels of attention.cu: {r['tiled_ms']:.3f}"
-                 " ms)" if "tiled_ms" in r else "")
+        old = "".join(f" ({olds[key]}, forced: {r[key]:.4f} ms)"
+                      for key in olds if key in r)
         log(f"[time] {name} {tag} B={r['B']} L={r['L']} bf16, device ms: "
-            f"kernel {r['ms']:.3f}{tiled}, plain {r['plain_ms']:.3f}, "
-            f"scaled_dot_product_attention {r['library_ms']:.3f}, bound "
-            f"{r['bound'][0]:.3f} ({r['bound'][1]})")
+            f"kernel {r['ms']:.4f}{old}, plain {r['plain_ms']:.4f}, "
+            f"scaled_dot_product_attention {r['library_ms']:.4f}, bound "
+            f"{r['bound'][0]:.4f} ({r['bound'][1]})")
 
 
 def _pair_mask(ctx, b, length):
@@ -1460,17 +1482,18 @@ def _ladder_mask(ctx, b, length):
 
 def _ladder_checks(ctx):
     """K5 at every shape of the length buckets' ladder (LADDER_SHAPES),
-    through the route _kernel_route gives each (short, sm90, d32), with a
+    through the route _kernel_route gives each (short, d64, d32), with a
     bucket's padding (_ladder_mask): within 2e-2 of the largest magnitude
-    of attention_plain on normal data, EQUAL to it on the exact forms;
-    timed beside the plain version, its bound (real keys only) and
-    SDPA."""
+    of attention_plain on normal data, EQUAL to it on the exact forms
+    (the d64 route also with a mask that has holes); timed beside the
+    plain version, its bound (real keys only) and SDPA, and the d64
+    route beside the sm90 forward at p=0 forced (its earlier route)."""
     import torch.nn.functional as F
 
     from cldrd_tpu_torch.ops import attention as att
 
     dev, bf16 = ctx["dev"], torch.bfloat16
-    names = {"short": "attention_infer", "sm90": "attention_infer_sm90",
+    names = {"short": "attention_infer", "d64": "attention_infer_d64",
              "d32": "attention_infer_d32"}
     for b, length, h, d in LADDER_SHAPES:
         route = att._kernel_route(bf16, length, d, "infer")
@@ -1478,22 +1501,28 @@ def _ladder_checks(ctx):
         mask = _ladder_mask(ctx, b, length)
         q, k, v = (torch.randn(shape, generator=ctx["gen"], device=dev)
                    .to(bf16) for _ in range(3))
-        ref = att.attention_plain(q, k, v, mask)
-        err = (att.flash_attention(q, k, v, mask).float()
-               - ref.float()).abs().max().item()
-        if not err <= 2e-2 * ref.float().abs().max().item():
-            raise AssertionError(f"K5 {route} bucket B={b} L={length} "
-                                 f"D={d}: max abs err {err:.3g}")
-        del ref
-        for form, xs in _exact_forms(dev, shape).items():
-            got = att.flash_attention(*xs, mask)
-            want = att.attention_plain(*xs, mask)
-            if not (want.abs().max() > 0 and torch.equal(got, want)):
-                raise AssertionError(
-                    f"K5 {route} bucket B={b} L={length} D={d} exact "
-                    f"({form}): {int((got != want).sum())} elements differ "
-                    "from the plain version")
-            del got, want
+        masks = {"bucket": mask}
+        if route == "d64":
+            masks["holes"] = _holed_mask(ctx, b, length)
+        errs = {}
+        for mtag, m in masks.items():
+            ref = att.attention_plain(q, k, v, m)
+            errs[mtag] = err = (att.flash_attention(q, k, v, m).float()
+                                - ref.float()).abs().max().item()
+            if not err <= 2e-2 * ref.float().abs().max().item():
+                raise AssertionError(f"K5 {route} bucket B={b} L={length} "
+                                     f"D={d} ({mtag}): max abs err "
+                                     f"{err:.3g}")
+            del ref
+            for form, xs in _exact_forms(dev, shape).items():
+                got = att.flash_attention(*xs, m)
+                want = att.attention_plain(*xs, m)
+                if not (want.abs().max() > 0 and torch.equal(got, want)):
+                    raise AssertionError(
+                        f"K5 {route} bucket B={b} L={length} D={d} exact "
+                        f"({form}, {mtag}): {int((got != want).sum())} "
+                        "elements differ from the plain version")
+                del got, want
         amask = (mask != 0)[:, None, None, :]
         # SDPA's rows with no key give NaN: let them attend to key 0
         amask[(mask == 0).all(1), :, :, 0] = True
@@ -1501,26 +1530,33 @@ def _ladder_checks(ctx):
         keys = int(mask.sum())
         nbytes, ops = _attn_bytes_ops(b, length, bf16, 4, 2, heads=h,
                                       head_dim=d, keys=keys)
+        k5 = lambda: att.flash_attention(q, k, v, mask)  # noqa: E731
         row = dict(
-            ms=device_ms(lambda: att.flash_attention(q, k, v, mask)),
+            ms=device_ms(k5),
             plain_ms=device_ms(lambda: att.attention_plain(q, k, v, mask),
                                reps=3, warmup=1),
             bound=bound_ms(nbytes, ops, "bf16"),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=amask)),
             route=route, real_keys=keys, B=b, L=length, H=h, D=d)
+        old = ""
+        if route == "d64":
+            with _k5_sm90():
+                row["sm90_ms"] = device_ms(k5)
+            old = f" (the sm90 forward, forced: {row['sm90_ms']:.4f})"
         ctx.setdefault("timings", {}).setdefault(names[route], {})[
             f"bucket_{b}x{length}"] = row
         key = "k5_teacher_err" if route == "d32" else "k5_err"
-        ctx[key] = max(ctx.get(key, 0.0), err)
+        ctx[key] = max(ctx.get(key, 0.0), *errs.values())
         log(f"[kernels] K5 {route} at the bucket shape B={b} L={length} "
             f"H={h} D={d} bf16 (a bucket's padding, one row and the last "
-            f"eighth all masked): max abs err {err:.3g} (tolerance 2e-2 "
-            "of the largest magnitude), EQUAL on exact inputs (two forms); "
-            f"device ms: kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}"
-            f", scaled_dot_product_attention {row['library_ms']:.4f}, bound "
+            f"eighth all masked{'; holes' if len(masks) > 1 else ''}): max "
+            f"abs err {errs} (tolerance 2e-2 of the largest magnitude), "
+            "EQUAL on exact inputs (two forms); device ms: kernel "
+            f"{row['ms']:.4f}{old}, plain {row['plain_ms']:.4f}, "
+            f"scaled_dot_product_attention {row['library_ms']:.4f}, bound "
             f"{row['bound'][0]:.4f} ({row['bound'][1]}; {keys} real keys)")
-        del q, k, v, mask, amask, qt, kt, vt
+        del q, k, v, mask, masks, amask, qt, kt, vt
         torch.cuda.empty_cache()
 
 
@@ -2154,8 +2190,7 @@ def phase_train(ctx):
                                  f"flat steps ({2 * (N_LAYERS - 1)} a step "
                                  "expected)")
         # every train-attention launch of the path takes the sm90 kernels
-        # (the evaluation's K5 launches share the sm90 forward's entry
-        # point: count by route)
+        # (counted by route: K3 and K5 may share an entry point)
         sm90 = {e: att.ROUTE_LAUNCHES[key] - routes[key] for e, key in (
             ("attn_fwd_sm90_launch", ("train_fwd", "attn_fwd_sm90_launch")),
             ("attn_bwd_sm90_launch", ("train_bwd", "attn_bwd_sm90_launch")))}
@@ -4426,6 +4461,26 @@ def _train_attention_route(route):
 
 
 @contextlib.contextmanager
+def _k5_sm90():
+    """K5 at head_dim 64 and 64 < L <= 256 on the card through the sm90
+    forward at p=0, forced (the route's kernel before
+    attention_infer_d64.cu), in place of what _kernel_route picks."""
+    from cldrd_tpu_torch.ops import attention as att
+
+    saved = att._kernel_route
+
+    def route(dtype, length, head_dim, name):
+        picked = saved(dtype, length, head_dim, name)
+        return "sm90" if picked == "d64" else picked
+
+    att._kernel_route = route
+    try:
+        yield
+    finally:
+        att._kernel_route = saved
+
+
+@contextlib.contextmanager
 def _k1_generic():
     """K1 on the card through extract_topk.cu, forced (the kernel of PRs
     1-4), in place of what kernel_route picks."""
@@ -4871,12 +4926,14 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err, by_shape=None):
         "bound_by": t["bound"][1], "library_ms": t.get("library_ms"),
         "shape": tag,
     }
-    for key in ("matmul_ms", "library_note", "generic_ms", "tiled_ms"):
+    for key in ("matmul_ms", "library_note", "generic_ms", "tiled_ms",
+                "sm90_ms", "real_keys"):
         if key in t:
             rec[key] = t[key]
     # the kernel's other timed shapes, by tag
-    others = {k: {key: v[key] for key in ("ms", "generic_ms", "plain_ms",
-                                          "matmul_ms", "library_ms")
+    others = {k: {key: v[key] for key in ("ms", "generic_ms", "sm90_ms",
+                                          "plain_ms", "matmul_ms",
+                                          "library_ms", "real_keys")
                   if key in v}
               | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
               for k, v in ctx["timings"][name].items() if k != tag}
@@ -4900,14 +4957,15 @@ KERNELS = [
      "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:257", "train",
      "attn_err_bf16"),
     # K5 by route (ops/attention.py::_kernel_route): the query encode's
-    # L=30 on attention_infer.cu; passages at L=256 (the teacher path's
-    # passage tower) on the sm90 forward; the MiniLM-L6 teacher's head_dim
-    # 32 on attention_infer_d32.cu
+    # L=30 on attention_infer.cu; passages at 64 < L <= 256 (every index
+    # build, the evaluation hook, the serve path's encodes) on
+    # attention_infer_d64.cu; the MiniLM-L6 teacher's head_dim 32 on
+    # attention_infer_d32.cu
     ("attention_infer", ("attention", ("infer", "attn_infer_short_launch")),
      "csrc/attention_infer.cu", "cldrd_tpu/ops/attention.py:61", "encode",
      "k5_err"),
-    ("attention_infer_sm90", ("attention", ("infer", "attn_fwd_sm90_launch")),
-     "csrc/attention_sm90.cu", "cldrd_tpu/ops/attention.py:61", "L256",
+    ("attention_infer_d64", ("attention", ("infer", "attn_infer_d64_launch")),
+     "csrc/attention_infer_d64.cu", "cldrd_tpu/ops/attention.py:61", "L256",
      "k5_err"),
     ("attention_infer_d32", ("attention", ("infer", "attn_infer_d32_launch")),
      "csrc/attention_infer_d32.cu", "cldrd_tpu/ops/attention.py:61",
@@ -4936,13 +4994,13 @@ ENTRIES = {"extract_topk": ("extract_topk", "extract_topk_sm90_launch"),
 # K5's entry points on each path: the query encode's L=30 and the
 # passage buckets up to 64 take the short-row kernel; passages at
 # 64 < L <= 256 (the train path's evaluation, the pipeline's index
-# calls, the teacher path's passage tower) the sm90 forward; the MiniLM
-# teacher (head_dim 32) attention_infer_d32.cu, on the teacher path and
-# in the serve path's rerank daemon (whose warm-up encodes a passage at
-# L=256). No path's K5 takes the tiled forward (read, to show it stays
-# 0)
-K5_ALL = ("attn_infer_short_launch", "attn_fwd_sm90_launch",
-          "attn_infer_d32_launch", "attn_fwd_launch")
+# calls, the teacher path's passage tower) attention_infer_d64.cu; the
+# MiniLM teacher (head_dim 32) attention_infer_d32.cu, on the teacher
+# path and in the serve path's rerank daemon (whose warm-up encodes a
+# passage at L=256). No path's K5 takes the sm90 forward or the tiled
+# forward (read, to show they stay 0)
+K5_ALL = ("attn_infer_short_launch", "attn_infer_d64_launch",
+          "attn_infer_d32_launch", "attn_fwd_sm90_launch", "attn_fwd_launch")
 K5_ENTRIES = {"train": K5_ALL[:2], "pipeline": K5_ALL[:2],
               "teacher": K5_ALL[:3], "serve": K5_ALL[:3],
               "multi": K5_ALL[:2]}
@@ -5070,18 +5128,18 @@ def main(argv=None) -> int:
              ("extract_topk", "fused_binmax")),
             ("train", phase_train,
              ("attention_train_fwd", "attention_train_bwd", "extract_topk",
-              "attention_infer", "attention_infer_sm90")),
+              "attention_infer", "attention_infer_d64")),
             ("pipeline", phase_pipeline,
-             ("extract_topk", "attention_infer", "attention_infer_sm90")),
+             ("extract_topk", "attention_infer", "attention_infer_d64")),
             ("teacher", phase_teacher,
-             ("attention_infer", "attention_infer_sm90",
+             ("attention_infer", "attention_infer_d64",
               "attention_infer_d32")),
             ("serve", phase_serve,
              ("ivf_probe", "extract_topk", "attention_infer_d32")),
             ("multi", phase_multi,
              ("extract_topk", "fused_binmax", "ivf_probe",
               "attention_train_fwd", "attention_train_bwd",
-              "attention_infer", "attention_infer_sm90"))):
+              "attention_infer", "attention_infer_d64"))):
         reset_launches()
         own = run(name, fn)
         # the serve phase checks its answers through the same kernels, so

@@ -1,8 +1,8 @@
 // K5 (inference attention) for short rows on Hopper (sm_90a): the route
 // of every bf16 launch with head_dim 64 and L <= 64
 // (ops/attention.py::_kernel_route), which is the query encode's L=30.
-// Rows of 65-256 take attention_sm90.cu's forward at p = 0; fp32,
-// head_dim 32 and longer rows keep attention.cu.
+// Rows of 65-256 take attention_infer_d64.cu; fp32 and longer rows keep
+// attention.cu, head_dim 32 attention_infer_d32.cu.
 //
 // Replaces the TPU kernel cldrd_tpu/ops/attention.py::_attention_kernel
 // (:61). Per (batch row b, head h): s = (q * scale) . k^T in fp32, masked
@@ -33,7 +33,10 @@
 //   (up to 64 keys) stays in registers, so the softmax takes the exact
 //   max and sum in one pass with no online rescale, and probs round to
 //   bf16 where the reference's do; the S accumulator's layout is P.V's A
-//   fragment, so probs never leave registers.
+//   fragment, so probs never leave registers. The exponential, the order
+//   of the row sum and the division are attn_common.cuh's K5 softmax,
+//   shared with attention_infer_d64.cu, so a passage encoded in the 32- or
+//   64-token bucket gives the bits it gives at L=256.
 // - Keys past L score -inf and add nothing to the sum (never -1e9), so a
 //   row whose real keys are all masked gives 1/L over its L keys, as the
 //   reference's unpadded row does.
@@ -103,12 +106,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// e / l from r = 1 / l with one exact correction (attention_sm90.cu's
-// div_row): the correctly rounded quotient for e in [0, 1], l in [1, L]
-__device__ __forceinline__ float div_row(float e, float l, float r) {
-  const float q = e * r;
-  return fmaf(fmaf(-q, l, e), r, q);
-}
 
 // Rows pad to LP (32 or 64). Per warp: Q, K, V tiles of LP rows of 128
 // bytes. Fragment layouts (g = lane / 4, t = lane % 4): the m16n8
@@ -198,18 +195,25 @@ attn_infer_short_kernel(const bf16* __restrict__ q,
       m[x] = fmaxf(m[x], __shfl_xor_sync(0xffffffffu, m[x], 1));
       m[x] = fmaxf(m[x], __shfl_xor_sync(0xffffffffu, m[x], 2));
     }
+    // the softmax of attn_common.cuh (ex2_approx), shared with
+    // attention_infer_d64.cu: sums 16 keys (key tiles 2j, 2j + 1) at a time
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = cldrd_attn::ex2_approx((s[n][e] - m[e >> 1]) *
+                                         cldrd_attn::LOG2E);
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        l[x] += (s[2 * j][2 * x] + s[2 * j][2 * x + 1]) +
+                (s[2 * j + 1][2 * x] + s[2 * j + 1][2 * x + 1]);
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
       l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
-      rl[x] = 1.f / l[x];
+      rl[x] = __frcp_rn(l[x]);
     }
     // probs in bf16 as P.V's A fragments: depth step j takes key tiles 2j
     // (a0 rows g, a1 rows g + 8) and 2j + 1 (a2, a3)
@@ -220,9 +224,8 @@ attn_infer_short_kernel(const bf16* __restrict__ q,
       for (int hn = 0; hn < 2; ++hn)
 #pragma unroll
         for (int x = 0; x < 2; ++x)
-          pa[j][2 * hn + x] =
-              pack_bf16(div_row(s[2 * j + hn][2 * x], l[x], rl[x]),
-                        div_row(s[2 * j + hn][2 * x + 1], l[x], rl[x]));
+          pa[j][2 * hn + x] = pack_bf16(s[2 * j + hn][2 * x] * rl[x],
+                                        s[2 * j + hn][2 * x + 1] * rl[x]);
     // out = P . V
     float o[D / 8][4];
 #pragma unroll

@@ -2,7 +2,10 @@
 // the route of every bf16 training launch with head_dim 64 and L <= 256
 // (ops/attention.py::_kernel_route), which covers the main path's passage
 // rows (L=256), query rows (L=30) and packed rows (256 with segments).
-// attention.cu keeps fp32, head_dim 32, 256 < L <= 512 and K5.
+// attention.cu keeps fp32, head_dim 32 and 256 < L <= 512. K5 has kernels
+// of its own (attention_infer.cu, attention_infer_d64.cu,
+// attention_infer_d32.cu); the forward here serves K5 only where a caller
+// forces it (chip_smoke times it as the d64 route's old route).
 //
 // Replaces the TPU kernels cldrd_tpu/ops/attention.py::
 //   _train_fwd_kernel_factory (:204, K3) and _train_bwd_kernel_factory

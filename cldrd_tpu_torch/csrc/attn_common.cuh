@@ -61,4 +61,20 @@ __device__ __forceinline__ float masked_score(float s, int km, int ks,
   return ok ? s : MASKED;
 }
 
+// K5's softmax at head_dim 64, shared by attention_infer.cu (L <= 64) and
+// attention_infer_d64.cu (64 < L <= 256), so a row gives the same bits at
+// every padded length (a length bucket's store holds the flat store's
+// rows): e = 2^((s - max) * log2 e) by ex2.approx, for scores s scaled by
+// 2^-3 (or the unscaled difference times 2^-3 log2 e: the same fp32
+// value); each thread sums its e 16 keys at a time, (e_2t + e_2t+1) +
+// (e_2t+8 + e_2t+9), in key order; each probability is e times the row's
+// correctly rounded 1 / sum. ex2_approx is exactly 1 at 0 and +0 at -inf
+// or below -150.
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 }  // namespace cldrd_attn

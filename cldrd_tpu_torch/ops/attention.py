@@ -15,11 +15,12 @@ Replaces the TPU kernels of ``cldrd_tpu/ops/attention.py``:
   same function: bf16 with ``head_dim`` 64 and ``L <= 64`` (the query
   encode's L=30) takes ``csrc/attention_infer.cu`` (a warp per (b, h)
   row, rows padded to 32 or 64, ``mma.sync`` with the row in registers);
-  ``64 < L <= 256`` takes the sm90 forward at p=0 without segments or
-  residual; bf16 with ``head_dim`` 32 and ``L <= 256`` (the MiniLM-L6
-  teacher's B=128, L=256) takes ``csrc/attention_infer_d32.cu`` (a block
-  per (b, h), key tiles with no real key skipped, ``mma.sync`` with the
-  row in registers); the rest takes the tiled forward of
+  ``64 < L <= 256`` (the passage encode) takes
+  ``csrc/attention_infer_d64.cu``; bf16 with ``head_dim`` 32 and
+  ``L <= 256`` (the MiniLM-L6 teacher's B=128, L=256) takes
+  ``csrc/attention_infer_d32.cu``. Both of those hold a block per
+  (b, h), skip key tiles with no real key and keep the row in registers
+  (``mma.sync``). The rest takes the tiled forward of
   ``csrc/attention.cu``. Its backward recomputes through the plain
   einsum form, as the reference's backward is XLA recompute.
 
@@ -40,7 +41,8 @@ repeats the reference kernel's arithmetic: a wrapper takes it for CPU
 tensors only, and on a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches by name, ``ENTRY_LAUNCHES`` by the C
 entry point they went through, ``ROUTE_LAUNCHES`` by (name, entry point):
-K3 and K5 share the tiled and sm90 forwards. ``SHAPE_LAUNCHES`` counts
+K3 and K5 share the tiled forward, and the sm90 forward where a caller
+forces K5 onto it (its old route). ``SHAPE_LAUNCHES`` counts
 the forwards by (name, entry point, B, L): the length buckets' shapes.
 """
 from __future__ import annotations
@@ -61,19 +63,25 @@ LAUNCHES = {"train_fwd": 0, "train_bwd": 0, "infer": 0}
 # the Hopper route's reach: bf16, head_dim 64, rows up to 256
 SM90_HEAD_DIM, SM90_MAX_LEN = 64, 256
 SHORT_MAX_LEN = 64  # K5's short-row kernel: bf16, head_dim 64, L <= 64
-# K5's head_dim-32 kernel: bf16, L <= 256 (the MiniLM-L6 teacher)
+# K5's head_dim-32 kernel: bf16, L <= 256 (the MiniLM-L6 teacher); its
+# head_dim-64 kernel takes 64 < L <= SM90_MAX_LEN
 D32_HEAD_DIM, D32_MAX_LEN = 32, 256
 # K5's own kernels by route: (source stem, C entry point)
 _INFER_KERNELS = {"short": ("attention_infer", "attn_infer_short_launch"),
+                  "d64": ("attention_infer_d64", "attn_infer_d64_launch"),
                   "d32": ("attention_infer_d32", "attn_infer_d32_launch")}
 ENTRY_LAUNCHES = {"attn_fwd_launch": 0, "attn_bwd_launch": 0,
                   "attn_fwd_sm90_launch": 0, "attn_bwd_sm90_launch": 0,
-                  "attn_infer_short_launch": 0, "attn_infer_d32_launch": 0}
+                  "attn_infer_short_launch": 0, "attn_infer_d64_launch": 0,
+                  "attn_infer_d32_launch": 0}
+# the sm90 forward keeps an ("infer", ...) count: a K5 launch takes it
+# only when a caller forces the route (chip_smoke's old-route timings)
 ROUTE_LAUNCHES = {(name, entry): 0 for name, entries in (
     ("train_fwd", ("attn_fwd_launch", "attn_fwd_sm90_launch")),
     ("train_bwd", ("attn_bwd_launch", "attn_bwd_sm90_launch")),
     ("infer", ("attn_fwd_launch", "attn_fwd_sm90_launch",
-               "attn_infer_short_launch", "attn_infer_d32_launch")))
+               "attn_infer_short_launch", "attn_infer_d64_launch",
+               "attn_infer_d32_launch")))
     for entry in entries}
 SHAPE_LAUNCHES: Counter = Counter()
 
@@ -309,17 +317,18 @@ def _ptr(t):
 
 def _kernel_route(dtype, length: int, head_dim: int, name: str) -> str:
     """The CUDA kernels a launch takes, by dtype and shape alone, for bf16
-    with head_dim 64: "short" (``csrc/attention_infer.cu``) for K5
-    (``name == "infer"``) with L <= 64; "sm90" (``csrc/attention_sm90.cu``)
-    for the rest with L <= 256. For bf16 K5 with head_dim 32 and
-    L <= 256: "d32" (``csrc/attention_infer_d32.cu``). "tiled"
-    (``csrc/attention.cu``) for everything else: fp32, K3/K4 at head_dim
-    32, 256 < L <= 512."""
+    with head_dim 64: for K5 (``name == "infer"``) "short"
+    (``csrc/attention_infer.cu``) with L <= 64 and "d64"
+    (``csrc/attention_infer_d64.cu``) with 64 < L <= 256; for K3/K4
+    "sm90" (``csrc/attention_sm90.cu``) with L <= 256. For bf16 K5 with
+    head_dim 32 and L <= 256: "d32" (``csrc/attention_infer_d32.cu``).
+    "tiled" (``csrc/attention.cu``) for everything else: fp32, K3/K4 at
+    head_dim 32, 256 < L <= 512."""
     if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM:
         if name == "infer" and length <= SHORT_MAX_LEN:
             return "short"
         if length <= SM90_MAX_LEN:
-            return "sm90"
+            return "d64" if name == "infer" else "sm90"
     if (dtype == torch.bfloat16 and head_dim == D32_HEAD_DIM
             and name == "infer" and length <= D32_MAX_LEN):
         return "d32"

@@ -246,8 +246,11 @@ def test_wrappers_route_by_device():
     (torch.bfloat16, 30, 64, "infer", "short"),       # the query encode
     (torch.bfloat16, 1, 64, "infer", "short"),
     (torch.bfloat16, 64, 64, "infer", "short"),
-    (torch.bfloat16, 65, 64, "infer", "sm90"),        # K5 on sm90 at p=0
-    (torch.bfloat16, 256, 64, "infer", "sm90"),
+    (torch.bfloat16, 65, 64, "infer", "d64"),         # the passage encode
+    (torch.bfloat16, 128, 64, "infer", "d64"),
+    (torch.bfloat16, 129, 64, "infer", "d64"),
+    (torch.bfloat16, 256, 64, "infer", "d64"),
+    (torch.bfloat16, 128, 64, "train_bwd", "sm90"),   # d64 is K5's only
     (torch.bfloat16, 257, 64, "infer", "tiled"),
     (torch.float32, 30, 64, "infer", "tiled"),
     (torch.bfloat16, 30, 32, "infer", "d32"),
@@ -269,15 +272,15 @@ def test_kernel_route_by_dtype_and_shape(dtype, length, d, name, route):
 
 def _pair_masks(rng, bsz, seq):
     """Masks as the teacher's rows have them, one row each: a pair's
-    prefix of real tokens (39-90 of 256), no real token at all (the padded
-    last batch of RerankingDataset), and real tokens with holes (whole
-    16-key tiles empty between them, values other than 1 real)."""
+    prefix of real tokens (39-90), no real token at all (the padded last
+    batch of RerankingDataset), and real tokens with holes (whole 16-key
+    tiles empty between them, values other than 1 real)."""
     mask = np.zeros((bsz, seq), np.int32)
     mask[0, :rng.integers(39, 91)] = 1
     for i in range(2, bsz):
         mask[i, 3:20] = 1
         mask[i, 70:75] = 2
-        mask[i, 140] = -1
+        mask[i, min(140, seq - 28)] = -1
         mask[i, rng.choice(seq, 12, replace=False)] = 1
         mask[i, 5] = 0
     return mask
@@ -311,16 +314,35 @@ def _k5_pair(q, k, v, mask):
             tout.float().numpy())
 
 
-@pytest.mark.parametrize("form", ["normal", "q0", "k0"])
-def test_infer_attention_matches_pallas_at_the_teacher_shape(form):
+# (L, head_dim): the MiniLM-L6 teacher's K5 (its cases keep their bare
+# form ids), and the passage encode's at head_dim 64 (a 128-token bucket,
+# and the flat L=256)
+_K5_SHAPES = [(256, 32), (128, 64), (256, 64)]
+
+
+def _k5_case_id(seq, dim, form):
+    return form if (seq, dim) == (256, 32) else f"{form}-L{seq}-d{dim}"
+
+
+def _k5_seed(seq, dim):
+    """The teacher's cases keep their seeds; the others draw apart."""
+    return 0 if (seq, dim) == (256, 32) else seq + dim
+
+
+@pytest.mark.parametrize("seq,dim,form", [
+    pytest.param(seq, dim, form, id=_k5_case_id(seq, dim, form))
+    for seq, dim in _K5_SHAPES for form in ("normal", "q0", "k0")])
+def test_infer_attention_matches_pallas_at_the_teacher_shape(seq, dim, form):
     """K5's plain version against the JAX kernel at head_dim 32, L=256
-    (the MiniLM-L6 teacher's K5), bf16, with a pair's prefix mask, an
-    all-masked row and a mask with holes: within one bf16 ulp of the
-    largest magnitude on normal data (both round probs and out to bf16
-    after fp32 sums taken in other orders), EQUAL on exact inputs."""
-    rng = np.random.default_rng(32)
-    mask = _pair_masks(rng, 3, 256)
-    qkv = _teacher_qkv(rng) if form == "normal" else _exact_qkv(form)
+    (the MiniLM-L6 teacher's K5) and at head_dim 64, L 128 and 256 (the
+    passage encode's), bf16, with a pair's prefix mask, an all-masked row
+    and a mask with holes: within one bf16 ulp of the largest magnitude
+    on normal data (both round probs and out to bf16 after fp32 sums
+    taken in other orders), EQUAL on exact inputs."""
+    rng = np.random.default_rng(32 + _k5_seed(seq, dim))
+    mask = _pair_masks(rng, 3, seq)
+    qkv = (_teacher_qkv(rng, seq=seq, dim=dim) if form == "normal"
+           else _exact_qkv(form, seq=seq, dim=dim))
     jout, tout = _k5_pair(*qkv, mask)
     assert np.abs(jout).max() > 0
     if form == "normal":
@@ -329,21 +351,23 @@ def test_infer_attention_matches_pallas_at_the_teacher_shape(form):
         assert np.abs(tout - jout).max() <= ulp
     else:
         np.testing.assert_array_equal(tout, jout)
-    # the all-masked row is the mean of v over all 256 keys
+    # the all-masked row is the mean of v over all L keys
     np.testing.assert_allclose(
         tout[1], np.broadcast_to(
             np.asarray(torch.from_numpy(qkv[2][1]).to(torch.bfloat16)
                        .float().mean(0)), tout[1].shape), atol=2e-2)
 
 
-def test_masked_keys_carry_no_weight_in_either_package():
+@pytest.mark.parametrize("seq,dim", _K5_SHAPES,
+                         ids=[f"L{seq}-d{dim}" for seq, dim in _K5_SHAPES])
+def test_masked_keys_carry_no_weight_in_either_package(seq, dim):
     """Large finite garbage in the K and V rows of masked keys leaves every
     row with a real key EQUAL in both packages (a masked key's weight is
-    exactly 0: what lets the head_dim-32 kernel skip padded key tiles),
-    and changes the all-masked row (1/L over every key)."""
-    rng = np.random.default_rng(7)
-    mask = _pair_masks(rng, 3, 256)
-    q, k, v = _teacher_qkv(rng)
+    exactly 0: what lets the head_dim-32 and -64 kernels skip padded key
+    tiles), and changes the all-masked row (1/L over every key)."""
+    rng = np.random.default_rng(7 + _k5_seed(seq, dim))
+    mask = _pair_masks(rng, 3, seq)
+    q, k, v = _teacher_qkv(rng, seq=seq, dim=dim)
     masked = (mask == 0)[:, :, None, None]
     junk = lambda: rng.uniform(-3e4, 3e4, k.shape).astype(  # noqa: E731
         np.float32)

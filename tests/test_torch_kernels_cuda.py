@@ -725,7 +725,7 @@ def test_extract_topk_route_boundary_by_launch_name(q_dtype, c_dtype, bz, d,
         assert torch.equal(a, b)
 
 
-# ------------------------------------------ K5 on Hopper (short and sm90)
+# ------------------------------------------- K5 on Hopper (short and d64)
 
 
 def _query_tower_mask(dev, b, length, g):
@@ -785,17 +785,18 @@ def test_infer_short_is_exact_on_exact_inputs(form, b, length):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("length", [65, 100, 256])
+@pytest.mark.parametrize("length", [65, 100, 128, 256])
 def test_infer_sm90_route_equals_plain(length):
-    """bf16 K5 at 64 < L <= 256 takes the sm90 forward at p = 0 (no
-    segments, no residual): within 2e-2 of the plain version, EQUAL on
-    exact inputs."""
+    """bf16 K5 at 64 < L <= 256, the sm90 forward's route until
+    attention_infer_d64.cu took it, launches the head_dim-64 kernel: within
+    2e-2 of the plain version, EQUAL on exact inputs, each counted on
+    attn_infer_d64_launch and none on the sm90 forward."""
     dev = _device()
     q, k, v, _, mask, _ = _attn_inputs(dev, 16, length, 12, 64,
                                        torch.bfloat16, False, 4)
     mask = _query_tower_mask(dev, 16, length,
                              torch.Generator(device=dev).manual_seed(3))
-    before = att.ENTRY_LAUNCHES["attn_fwd_sm90_launch"]
+    before = dict(att.ENTRY_LAUNCHES)
     out = att.flash_attention(q, k, v, mask)
     ref = att.attention_plain(q, k, v, mask)
     zq = torch.zeros_like(q)
@@ -805,7 +806,10 @@ def test_infer_sm90_route_equals_plain(length):
     out_x = att.flash_attention(zq, k, hot, mask)
     ref_x = att.attention_plain(zq, k, hot, mask)
     torch.cuda.synchronize()
-    assert att.ENTRY_LAUNCHES["attn_fwd_sm90_launch"] == before + 2
+    assert att.ENTRY_LAUNCHES["attn_infer_d64_launch"] == \
+        before["attn_infer_d64_launch"] + 2
+    assert att.ENTRY_LAUNCHES["attn_fwd_sm90_launch"] == \
+        before["attn_fwd_sm90_launch"]
     assert _rel(out, ref) <= 2e-2
     assert torch.equal(out_x, ref_x)
 
@@ -874,11 +878,11 @@ def test_infer_tiled_route_at_the_teacher_shape(form, route):
 
 
 def _d32_mask(dev, b, length, g, kind):
-    """K5 masks at head_dim 32: "pairs", a prefix of 1..L real keys a row
-    and row 1 with none; "holes", scattered real keys (values 1, 2, -1:
-    the test is != 0) with whole 16-key tiles empty and the last of two
-    or more rows with none; "none", no real key in any row (the reference
-    gives 1/L over every key)."""
+    """K5 masks for the head_dim-32 and -64 kernels: "pairs", a prefix of
+    1..L real keys a row and row 1 with none; "holes", scattered real keys
+    (values 1, 2, -1: the test is != 0) with whole 16-key tiles empty and
+    the last of two or more rows with none; "none", no real key in any row
+    (the reference gives 1/L over every key)."""
     if kind == "pairs":
         n = torch.randint(1, length + 1, (b, 1), generator=g, device=dev)
         mask = (torch.arange(length, device=dev)[None] < n).int()
@@ -977,6 +981,121 @@ def test_infer_d32_is_deterministic_and_checks_alignment():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pairs", "holes", "none"])
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("length", [65, 100, 128, 129, 255, 256])
+def test_infer_d64_equals_plain(length, b, kind):
+    """bf16 K5 at head_dim 64 and 64 < L <= 256 takes
+    attention_infer_d64.cu (its 8-tile build up to L=128, its 16-tile one
+    past it): within 2e-2 of the largest magnitude of the plain version
+    on normal data (one bf16 ulp of a probability near 1), EQUAL to it on
+    exact inputs, with prefix masks, masks with holes and all-masked
+    rows."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(length * 7 + b + 64)
+    shape = (b, length, 12, 64)
+    mask = _d32_mask(dev, b, length, g, kind)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = att.ENTRY_LAUNCHES["attn_infer_d64_launch"]
+    out = att.flash_attention(q, k, v, mask)
+    ref = att.attention_plain(q, k, v, mask)
+    exact = [(att.flash_attention(*x, mask), att.attention_plain(*x, mask))
+             for x in (_exact_forms(dev, shape, f) for f in ("q0", "k0"))]
+    torch.cuda.synchronize()
+    assert att.ENTRY_LAUNCHES["attn_infer_d64_launch"] == before + 3
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, ref) <= 2e-2
+    for got, want in exact:
+        assert want.abs().max() > 0
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [65, 128, 256])
+def test_infer_d64_ignores_masked_key_rows(length):
+    """Large finite garbage in the K and V rows of masked keys leaves every
+    row with a real key EQUAL (its padded key tiles are skipped, its other
+    masked keys weigh exactly 0); an all-masked row takes the garbage, as
+    the plain version does."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(length + 64)
+    shape = (64, length, 12, 64)
+    mask = _d32_mask(dev, 64, length, g, "holes")
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    masked = (mask == 0)[:, :, None, None]
+    kg, vg = (torch.where(masked, (torch.rand(shape, generator=g, device=dev)
+                                   - 0.5).mul(6e4).to(torch.bfloat16), x)
+              for x in (k, v))
+    out = att.flash_attention(q, k, v, mask)
+    out_g = att.flash_attention(q, kg, vg, mask)
+    ref_g = att.attention_plain(q, kg, vg, mask)
+    torch.cuda.synchronize()
+    real = (mask != 0).any(1)
+    assert real.any() and not real.all()
+    assert torch.equal(out_g[real], out[real])
+    assert _rel(out_g, ref_g) <= 2e-2
+    assert not torch.equal(out_g[~real], out[~real])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [128, 256])
+def test_infer_d64_is_deterministic_and_checks_alignment(length):
+    """Ten launches at a passage bucket's shape give the same bits; an
+    operand off a 16-byte boundary raises before any launch."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(length + 10)
+    shape = (512 * 256 // length, length, 12, 64)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = _d32_mask(dev, shape[0], length, g, "pairs")
+    first = att.flash_attention(q, k, v, mask)
+    for _ in range(9):
+        assert torch.equal(att.flash_attention(q, k, v, mask), first)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = flat[1:].view(shape)
+    off.copy_(q)
+    before = att.ENTRY_LAUNCHES["attn_infer_d64_launch"]
+    with pytest.raises(ValueError, match="aligned"):
+        att.flash_attention(off, k, v, mask)
+    assert att.ENTRY_LAUNCHES["attn_infer_d64_launch"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["normal", "holes"])
+def test_infer_short_and_d64_agree_across_padding(form):
+    """A passage whose real tokens fit in 64 gives the same bits in every
+    length bucket: the short-row kernel at L=64 (its 32 first tokens at
+    L=32) and attention_infer_d64.cu at L=128 and 256 share the K5
+    softmax of attn_common.cuh, and padded keys weigh exactly 0, so the
+    rows of the shorter launch EQUAL the same rows of the longer ones."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(2024)
+    b, h = 64, 12
+    q, k, v = (torch.randn(b, 256, h, 64, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    n = torch.randint(1, 65, (b, 1), generator=g, device=dev)
+    mask = (torch.arange(256, device=dev)[None] < n).int()
+    if form == "holes":
+        mask = mask * (torch.rand(b, 256, generator=g, device=dev)
+                       < 0.7).int()
+        mask[:, 0] = 1
+    short_n = (n <= 32).squeeze(1)
+    outs = {}
+    for length in (32, 64, 128, 256):
+        sl = slice(0, length)
+        outs[length] = att.flash_attention(
+            q[:, sl].contiguous(), k[:, sl].contiguous(),
+            v[:, sl].contiguous(), mask[:, sl].contiguous())
+    torch.cuda.synchronize()
+    for length in (128, 256):
+        assert torch.equal(outs[length][:, :64], outs[64])
+        assert torch.equal(outs[length][short_n, :32], outs[32][short_n])
+    assert torch.equal(outs[256][:, :128], outs[128])
+
+
+@pytest.mark.cuda
 def test_route_launches_tell_k3_from_k5_on_a_shared_forward():
     """K3 and K5 at fp32, head_dim 32 both take attention.cu's tiled
     forward: ENTRY_LAUNCHES counts both under its entry point,
@@ -1000,8 +1119,8 @@ def test_route_launches_tell_k3_from_k5_on_a_shared_forward():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,length,d,entry", [
     (torch.bfloat16, 64, 64, "attn_infer_short_launch"),
-    (torch.bfloat16, 65, 64, "attn_fwd_sm90_launch"),
-    (torch.bfloat16, 256, 64, "attn_fwd_sm90_launch"),
+    (torch.bfloat16, 65, 64, "attn_infer_d64_launch"),
+    (torch.bfloat16, 256, 64, "attn_infer_d64_launch"),
     (torch.bfloat16, 257, 64, "attn_fwd_launch"),
     (torch.float32, 30, 64, "attn_fwd_launch"),
     (torch.bfloat16, 30, 32, "attn_infer_d32_launch"),
@@ -1035,6 +1154,7 @@ def test_built_kernels_have_no_wgmma_register_hazards():
     hgmma = {name.split("-")[0]: n for name, n in counts.items()}
     assert hgmma["extract_topk_sm90"] > 0 and hgmma["attention_sm90"] > 0
     assert hgmma["fused_binmax_sm90"] > 0
+    assert hgmma["attention_infer_d64"] > 0
 
 
 @pytest.mark.cuda
@@ -1058,11 +1178,11 @@ def test_extract_topk_sm90_equals_plain_on_every_launch(c_dtype, rounds,
 # the length buckets' shapes (data/bucketing.py's default ladder at batch
 # 512, L 256 for the passage tower, head_dim 64, and batch 128, L 256 for
 # the MiniLM teacher, head_dim 32): (B, L, head_dim, route)
-_LADDER = ([(512 * 256 // n, n, 64, "short" if n <= 64 else "sm90")
+_LADDER = ([(512 * 256 // n, n, 64, "short" if n <= 64 else "d64")
             for n in (32, 64, 128, 256)]
            + [(128 * 256 // n, n, 32, "d32") for n in (32, 64, 128, 256)])
 _ROUTE_ENTRY = {"short": "attn_infer_short_launch",
-                "sm90": "attn_fwd_sm90_launch",
+                "d64": "attn_infer_d64_launch",
                 "d32": "attn_infer_d32_launch"}
 
 
