@@ -9,7 +9,8 @@ Phases (each raises on any failure; the script then exits non-zero):
    (one process per source, all at once) and print the seconds; read
    every library's SASS and fail if an instruction writes a wgmma's
    register-A operand or touches its accumulators before the wait that
-   retires it (cldrd_tpu_torch/ops/_wgmma_check.py).
+   retires it (cldrd_tpu_torch/ops/_wgmma_check.py; HGMMA and, for K7's
+   int8 x int8 variant, IGMMA, which int8_dot_sm90 must hold).
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it. K1/K2 (D=768; K1 at N=1,048,576
    with B=128 and 512, at the pipeline's N=32,768, k=100, and at bin
@@ -59,7 +60,17 @@ Phases (each raises on any failure; the script then exits non-zero):
    attention.cu's tiled forward forced on the same inputs, the second
    beside the sm90 forward at p=0 forced (its earlier route), at
    B=240, L=256 and at the flat index build's 512x256 with its passage
-   padding (32-86 real keys of 256), each also beside SDPA. K5
+   padding (32-86 real keys of 256), each also beside SDPA. K7 (the
+   int8 A/B of examples/bench_int8_dot.py: each 1,024-row store tile's
+   maximum score for each query; csrc/int8_dot_sm90.cu in its bf16,
+   int8_cast and int8_native variants) at N=16,384, tile 128, B=128 and
+   at the A/B's N=1,114,112, tile 1,024, B=512: EQUAL its plain version
+   on integer-valued inputs in [-127, 127], within 1e-5 relative on a
+   normal draw; then the A/B: each variant's device time beside its
+   bound, its plain version and the bare product (bf16 torch.matmul;
+   torch._int_mm for int8 x int8), a line of the script's own fields a
+   variant and one of int8_native's speedups. No path of the port
+   launches K7: its launches in the kernels line are the A/B's. K5
    at the MiniLM-L6 teacher's shape (B=128, L=256, H=12, D=32, bf16,
    pairs of 39-90 real tokens) takes attention_infer_d32.cu: within
    2e-2 of its plain version on normal data, EQUAL on exact inputs (two
@@ -223,7 +234,8 @@ the teacher and serve paths; the sm90 forward's and the tiled forward's
 K5 counts are read and must stay 0); K5 is also counted by (entry
 point, B, L)
 (ops/attention.py::SHAPE_LAUNCHES). The kernels line sums the six
-windows, K5's launches by shape included. The serve phase checks
+windows, K5's launches by shape included; K7, on no path, adds the
+window of the kernels phase's A/B (its timed calls). The serve phase checks
 its answers through the same kernels, so its window is the sum of spans
 that each hold only the path's own work (the index CLI, the daemons'
 start-up and the requests they answer), counted the same way.
@@ -265,7 +277,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # operations/s by operand type
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 D = 768
 N_KERNEL = 1_048_576
@@ -325,6 +337,11 @@ RANGE_K_START = 1024   # range_search's first depth (two depths forced)
 N_ONDEVICE_FLAT = 8192  # passages of the flat on-device builds (cut from
 #                         32,768: every row pays L=256 there)
 RERANK_K, RERANK_TOP = 100, 10  # the rerank daemon's requests
+# K7, the int8 A/B of examples/bench_int8_dot.py, at its shape: 1,088
+# store tiles of 1,024 rows (the per-chip shard), 512 queries
+K7_N, K7_TILE, K7_B = 1_114_112, 1024, 512
+K7_SMALL = (16_384, 128, 128)  # N, tile_rows, B of the small checks
+K7_RTOL = 1e-5                 # normal data: fp32 summation order only
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -652,6 +669,141 @@ def _time_k2(ctx, tag, q, c, ids, scales, bin_rows=128):
         f"{t['matmul_ms']:.3f}")
 
 
+# ------------------------------------------------- K7: the int8 A/B
+
+def _k7_compare(ctx, tag, q, c, tile_rows, integer):
+    """K7 against its plain version on the same inputs: EQUAL on
+    integer-valued inputs (exact in every variant), each maximum within
+    K7_RTOL of the plain one's magnitude on normal data."""
+    from cldrd_tpu_torch.ops import int8_dot as k7
+
+    route = k7.kernel_route(q.dtype, c.dtype)
+    tag = (f"K7 {tag} {route} B={q.shape[0]} N={c.shape[0]} "
+           f"tile={tile_rows} {'int' if integer else 'normal'}")
+    got = k7.tile_max_scores(q, c, tile_rows)
+    ref = k7.tile_max_scores_plain(q, c, tile_rows)
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} or values "
+                             "not finite")
+    err = (got - ref).abs()
+    if integer and not torch.equal(got, ref):
+        raise AssertionError(f"{tag}: {int((err > 0).sum())} maxima differ "
+                             "on integer-valued inputs")
+    if not integer and not bool((err <= K7_RTOL * ref.abs()).all()):
+        raise AssertionError(f"{tag}: max abs err {err.max().item():.3g} "
+                             f"beyond {K7_RTOL} relative")
+    err = err.max().item()
+    log(f"[kernels] {tag}: {'EQUAL' if integer else 'agrees'}, max_abs_err "
+        f"{err:.3g}")
+    ctx["k7_err"] = max(ctx.get("k7_err", 0.0), err)
+
+
+def _k7_operands(ctx, n, bz, d, variant, integer):
+    """The A/B script's draws: int8 codes uniform in [-127, 127] (the
+    store, and the native variant's queries), bf16 from a normal draw
+    (integer-valued in [-127, 127] when ``integer``)."""
+    from cldrd_tpu_torch.ops import int8_dot as k7
+
+    dev, gen = ctx["dev"], ctx["gen"]
+
+    def draw(shape, dtype):
+        if dtype == torch.int8 or integer:
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8).to(dtype)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q_dtype, c_dtype = {v: k for k, v in k7.ROUTES.items()}[variant]
+    return draw((bz, d), q_dtype), draw((n, d), c_dtype)
+
+
+def _int8_dot_ab(ctx):
+    """K7 held to its plain version, at a small shape and at the A/B's
+    (N = 1,114,112, tile 1,024, B = 512, D = 768), then the A/B itself:
+    each variant's device time beside its bound, its plain version and
+    the bare product (torch.matmul in bf16; torch._int_mm for int8 x
+    int8), with the script's own fields on a line each and the speedups
+    of int8_native. The A/B's launches are K7's path (no path of the port
+    launches it): counted from 0 around the timed calls alone."""
+    from cldrd_tpu_torch.ops import int8_dot as k7
+
+    n_s, tile_s, b_s = K7_SMALL
+    for variant in k7.ROUTES.values():
+        for integer in (True, False):
+            if integer or variant != "int8_native":
+                _k7_compare(ctx, "small", *_k7_operands(
+                    ctx, n_s, b_s, D, variant, integer), tile_s, integer)
+    dev, gen = ctx["dev"], ctx["gen"]
+    # the A/B's stores and queries; the integer-valued bf16 store (the
+    # int8 codes widened) only for the bf16 variant's EQUAL check
+    c8 = torch.randint(-127, 128, (K7_N, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    q8 = torch.randint(-127, 128, (K7_B, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    qi = torch.randint(-127, 128, (K7_B, D), generator=gen, device=dev,
+                       dtype=torch.int8).to(torch.bfloat16)
+    _k7_compare(ctx, "A/B", q8, c8, K7_TILE, True)
+    _k7_compare(ctx, "A/B", qi, c8, K7_TILE, True)
+    c8b = c8.to(torch.bfloat16)  # also the int8_cast variant's yardstick
+    _k7_compare(ctx, "A/B", qi, c8b, K7_TILE, True)
+    cb = torch.randn(K7_N, D, generator=gen, device=dev).to(torch.bfloat16)
+    qn = torch.randn(K7_B, D, generator=gen, device=dev).to(torch.bfloat16)
+    _k7_compare(ctx, "A/B", qn, cb, K7_TILE, False)
+    _k7_compare(ctx, "A/B", qn, c8, K7_TILE, False)
+    torch.cuda.empty_cache()
+
+    operands = {"bf16": (qn, cb, cb), "int8_cast": (qn, c8, c8b),
+                "int8_native": (q8, c8, None)}
+    ops = 2 * K7_B * D * K7_N
+    rows = ctx.setdefault("timings", {}).setdefault("int8_dot", {})
+    k7.LAUNCHES = 0
+    for variant, (q, c, cmm) in operands.items():
+        ms = device_ms(lambda: k7.tile_max_scores(q, c, K7_TILE))
+        peak = "int8" if variant == "int8_native" else "bf16"
+        nbytes = (c.numel() * c.element_size() + q.numel() * q.element_size()
+                  + 4 * (K7_N // K7_TILE) * K7_B)
+        t = dict(ms=ms, bound=bound_ms(nbytes, ops, peak), bytes=nbytes,
+                 ops=ops, B=K7_B, N=K7_N, tile_rows=K7_TILE,
+                 tflops=ops / ms / 1e9,
+                 vs_peak=ops / ms / 1e9 / (PEAK_OPS[peak] / 1e12))
+        rows[variant] = t
+        log("[time] int8_dot A/B " + json.dumps({
+            "variant": variant, "ms": ms, "tflops": t["tflops"],
+            f"vs_{peak}_peak_{PEAK_OPS[peak] / 1e12:.0f}": t["vs_peak"]}))
+    ctx["k7_launches"] = k7.LAUNCHES
+    for variant, (q, c, cmm) in operands.items():
+        t = rows[variant]
+        t["plain_ms"] = device_ms(
+            lambda: k7.tile_max_scores_plain(q, c, K7_TILE), reps=1,
+            warmup=1)
+        if cmm is not None:
+            t["matmul_ms"] = device_ms(lambda: torch.matmul(q, cmm.T),
+                                       reps=3, warmup=1)
+            t["library_note"] = (f"none (bf16 matmul alone: "
+                                 f"{t['matmul_ms']} ms)")
+        else:
+            try:
+                t["int_mm_ms"] = device_ms(
+                    lambda: torch._int_mm(c, q.t()), reps=3, warmup=1)
+                t["library_note"] = (f"none (torch._int_mm alone: "
+                                     f"{t['int_mm_ms']} ms)")
+            except RuntimeError as e:
+                t["int_mm_ms"] = None
+                t["library_note"] = f"none (torch._int_mm refused: {e})"
+        torch.cuda.empty_cache()
+        log(f"[time] int8_dot {variant} B={K7_B} N={K7_N} tile={K7_TILE}, "
+            f"device ms: kernel {t['ms']:.4f}, plain {t['plain_ms']:.3f}, "
+            f"bound {t['bound'][0]:.4f} ({t['bound'][1]}), "
+            f"{t['library_note']}")
+    rows["int8_native"]["launches_from"] = (
+        "the kernels phase's A/B (no path of the port launches K7)")
+    t_b, t_c, t_n = (rows[v]["ms"] for v in operands)
+    ctx["k7_summary"] = {"summary": "int8_native speedup",
+                         "vs_bf16": t_b / t_n, "vs_int8_cast": t_c / t_n}
+    log("[time] int8_dot A/B " + json.dumps(ctx["k7_summary"]))
+    del c8, c8b, cb, q8, qi, qn, operands
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -678,8 +830,20 @@ def phase_build(ctx):
     from cldrd_tpu_torch.ops import _wgmma_check
 
     counts = _wgmma_check.check_libraries(paths.values())
-    log("[build] wgmma register hazards: none in "
-        + ", ".join(f"{lib} ({n} HGMMA)" for lib, n in counts.items() if n))
+
+    def named(ops):
+        return ", ".join(f"{n} {op}" for op, n in ops.items() if n)
+
+    log("[build] wgmma register hazards: none in " + ", ".join(
+        f"{lib} ({named(ops)})" for lib, ops in counts.items() if named(ops)))
+    # K7's native variant is the one integer product: its IGMMA must be
+    # there (and was followed above)
+    k7 = {lib.split("-")[0]: ops for lib, ops in counts.items()}[
+        "int8_dot_sm90"]
+    if not k7["IGMMA"] or not k7["HGMMA"]:
+        raise AssertionError(f"int8_dot_sm90: wgmma counts {k7} (IGMMA and "
+                             "HGMMA expected)")
+    ctx["wgmma_counts"] = counts
 
 
 def phase_kernels(ctx):
@@ -759,6 +923,7 @@ def phase_kernels(ctx):
     torch.cuda.empty_cache()
     _ivf_probe_checks(ctx)
     torch.cuda.empty_cache()
+    _int8_dot_ab(ctx)
 
 
 def _compare_k6(ctx, tag, q, rows, probe, scales, integer):
@@ -4927,13 +5092,15 @@ def _kernel_record(ctx, name, src, ref, tag, launches, err, by_shape=None):
         "shape": tag,
     }
     for key in ("matmul_ms", "library_note", "generic_ms", "tiled_ms",
-                "sm90_ms", "real_keys"):
+                "sm90_ms", "real_keys", "int_mm_ms", "tflops", "vs_peak",
+                "launches_from"):
         if key in t:
             rec[key] = t[key]
     # the kernel's other timed shapes, by tag
     others = {k: {key: v[key] for key in ("ms", "generic_ms", "sm90_ms",
                                           "plain_ms", "matmul_ms",
-                                          "library_ms", "real_keys")
+                                          "library_ms", "real_keys",
+                                          "tflops", "vs_peak")
                   if key in v}
               | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
               for k, v in ctx["timings"][name].items() if k != tag}
@@ -4972,6 +5139,9 @@ KERNELS = [
      "teacher", "k5_teacher_err"),
     ("ivf_probe", ("ivf_probe", None), "csrc/ivf_probe.cu",
      "cldrd_tpu/ops/ivf_probe.py:60", "int8_full_b8", "k6_err"),
+    # K7 lies on no path: its launches are the kernels phase's A/B
+    ("int8_dot", ("int8_dot", None), "csrc/int8_dot_sm90.cu",
+     "examples/bench_int8_dot.py:37", "int8_native", "k7_err"),
 ]
 
 
@@ -4980,11 +5150,13 @@ def _counters():
         attention,
         extract_topk,
         fused_binmax,
+        int8_dot,
         ivf_probe,
     )
 
     return {"extract_topk": extract_topk, "fused_binmax": fused_binmax,
-            "attention": attention, "ivf_probe": ivf_probe}
+            "attention": attention, "ivf_probe": ivf_probe,
+            "int8_dot": int8_dot}
 
 
 # the C entry points whose launches the paths must show: every K1 and K2
@@ -5154,6 +5326,8 @@ def main(argv=None) -> int:
         for k, v in window.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
+    # K7's path is the kernels phase's A/B (no path of the port reaches it)
+    launches["int8_dot"] += ctx["k7_launches"]
     missing = [k for k, v in launches.items() if v <= 0
                and not k.startswith(("entry:", "k5:", "shape:"))
                and k != "k5"]
@@ -5172,7 +5346,8 @@ def main(argv=None) -> int:
                                 "k2_err", "k2_checked", "k6_err",
                                 "attn_err_fp32",
                                 "attn_err_bf16",
-                                "k5_err", "k1_checked", "build_s")}))
+                                "k5_err", "k1_checked", "build_s",
+                                "k7_err", "k7_summary", "wgmma_counts")}))
     log(smi_line())
     def by_shape(counter):
         """The main path's K5 launches of one entry point, by B x L."""

@@ -6,11 +6,12 @@ register-A form) and writes its accumulators asynchronously, until a
 fragment's registers, or touches the accumulators, before that wait races
 with the tensor cores: the product may read the new value, and the result
 then varies from run to run. This module reads the SASS that ``cuobjdump``
-prints for a library and follows every path from each ``HGMMA`` (the SASS
-of ``wgmma.mma_async``) to the ``WARPGROUP.DEPBAR`` (``wait_group``) that
+prints for a library and follows every path from each ``HGMMA`` or
+``IGMMA`` (the SASS of ``wgmma.mma_async`` on floating-point and on
+integer operands) to the ``WARPGROUP.DEPBAR`` (``wait_group``) that
 retires it, reporting each such instruction on the way.
 
-In SASS, the last ``HGMMA`` of a group carries ``gsb0`` (its commit), and
+In SASS, the last product of a group carries ``gsb0`` (its commit), and
 ``WARPGROUP.DEPBAR.LE gsb0, N`` waits until at most N groups are pending:
 a group is retired there once N or more groups were committed after it.
 """
@@ -25,7 +26,10 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Set
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
 _FUNC = re.compile(r"Function : (\S+)")
 _REG = re.compile(r"\bR(\d+)(\.64)?\b")
-_SHAPE = re.compile(r"HGMMA\.64x(\d+)x")
+_SHAPE = re.compile(r"[HI]GMMA\.64x(\d+)x")
+# the wgmma opcodes followed: HGMMA (fp16 / bf16 / tf32 operands), IGMMA
+# (s8 / u8 operands, s32 accumulators)
+WGMMA_OPS = ("HGMMA", "IGMMA")
 
 
 class Insn(NamedTuple):
@@ -44,7 +48,7 @@ class Hazard(NamedTuple):
 
     def __str__(self):
         return (f"{self.function}: {self.kind} at {self.insn.addr:#06x} "
-                f"({self.insn.text}) while the HGMMA at "
+                f"({self.insn.text}) while the {self.hgmma.op[:5]} at "
                 f"{self.hgmma.addr:#06x} ({self.hgmma.text}) may run")
 
 
@@ -91,7 +95,7 @@ def _written(insn: Insn) -> Set[int]:
     first = 1 if op.startswith("SHFL") else 0  # SHFL: predicate first
     if first >= len(args):
         return set()
-    if op.startswith("HGMMA"):
+    if op.startswith(WGMMA_OPS):
         m = _SHAPE.match(op)
         width = int(m.group(1)) // 2 if m else 1
     elif ".128" in op or op.startswith("LDSM") and op.endswith(".4"):
@@ -129,7 +133,7 @@ def _successors(insns: List[Insn], i: int, index: Dict[int, int]):
 
 
 def _is_commit(insn: Insn) -> bool:
-    return insn.op.startswith("HGMMA") and "gsb0" in insn.args
+    return insn.op.startswith(WGMMA_OPS) and "gsb0" in insn.args
 
 
 def _retire_depth(insn: Insn) -> Optional[int]:
@@ -139,13 +143,13 @@ def _retire_depth(insn: Insn) -> Optional[int]:
 
 
 def hazards_in(function: str, insns: List[Insn]) -> List[Hazard]:
-    """Every instruction that writes an in-flight HGMMA's register-A
+    """Every instruction that writes an in-flight product's register-A
     operand, or names its accumulators, on some path before the
     ``WARPGROUP.DEPBAR`` that retires it."""
     index = {insn.addr: i for i, insn in enumerate(insns)}
     found: List[Hazard] = []
     for h, hg in enumerate(insns):
-        if not hg.op.startswith("HGMMA"):
+        if not hg.op.startswith(WGMMA_OPS):
             continue
         acc = _written(hg)
         a_regs = (_regs(hg.args[1], 4) if len(hg.args) > 1
@@ -163,7 +167,7 @@ def hazards_in(function: str, insns: List[Insn]) -> List[Hazard]:
             depth = _retire_depth(insn)
             if depth is not None and committed and after >= depth:
                 continue  # retired on this path
-            if insn.op.startswith("HGMMA"):
+            if insn.op.startswith(WGMMA_OPS):
                 if _is_commit(insn):
                     committed, after = True, after + (1 if committed else 0)
                 # a later product of the chain may share the accumulators
@@ -195,14 +199,21 @@ def library_sass(path) -> str:
                           capture_output=True, text=True).stdout
 
 
-def check_libraries(paths: Iterable) -> Dict[str, int]:
-    """``{library: HGMMA count}``; raises listing every hazard found."""
+def wgmma_counts(sass: str) -> Dict[str, int]:
+    """``{opcode: count}`` of the listing's wgmma products, by
+    ``WGMMA_OPS``."""
+    ops = [insn.op for insns in parse(sass).values() for insn in insns]
+    return {name: sum(op.startswith(name) for op in ops)
+            for name in WGMMA_OPS}
+
+
+def check_libraries(paths: Iterable) -> Dict[str, Dict[str, int]]:
+    """``{library: {"HGMMA": count, "IGMMA": count}}``; raises listing
+    every hazard found."""
     counts, bad = {}, []
     for path in paths:
         sass = library_sass(path)
-        counts[Path(path).name] = sum(
-            insn.op.startswith("HGMMA")
-            for insns in parse(sass).values() for insn in insns)
+        counts[Path(path).name] = wgmma_counts(sass)
         bad += [f"{Path(path).name}: {hz}" for hz in hazards(sass)]
     if bad:
         raise AssertionError("wgmma register hazards:\n" + "\n".join(bad))

@@ -26,6 +26,7 @@ import torch
 from cldrd_tpu_torch.ops import attention as att
 from cldrd_tpu_torch.ops import extract_topk as k1
 from cldrd_tpu_torch.ops import fused_binmax as k2
+from cldrd_tpu_torch.ops import int8_dot as k7
 from cldrd_tpu_torch.ops import ivf_probe as k6
 from cldrd_tpu_torch.search import mips
 
@@ -248,6 +249,110 @@ def test_extract_topk_other_bins_equal_plain(bin_rows):
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
 
+
+
+# ------------------------------------------------ K7 (the int8 A/B)
+
+
+def _k7_inputs(dev, bz, n, d, route, seed, normal=False):
+    """Integer codes in [-127, 127] as each variant's operands (exact in
+    every variant: |sum| <= 127 * 127 * 768 < 2^24); with ``normal`` the
+    bf16 operands are a normal draw instead."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, dtype):
+        if normal and dtype == torch.bfloat16:
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8).to(dtype)
+
+    q_dtype, c_dtype = {v: k for k, v in k7.ROUTES.items()}[route]
+    return draw((bz, d), q_dtype), draw((n, d), c_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bf16", "int8_cast", "int8_native"])
+@pytest.mark.parametrize("bz", [128, 256, 512])
+@pytest.mark.parametrize("tile_rows", [128, 1024])
+def test_int8_dot_equals_plain(route, bz, tile_rows):
+    """Each variant's tile maxima EQUAL the plain version's on integer
+    inputs; 65,536 rows give every block of the persistent grid several
+    items at B=512."""
+    dev = _device()
+    q, c = _k7_inputs(dev, bz, 65_536, 768, route, bz + tile_rows)
+    assert k7.kernel_route(q.dtype, c.dtype) == route
+    before = k7.ENTRY_LAUNCHES["int8_dot_sm90_launch"]
+    got = k7.tile_max_scores(q, c, tile_rows)
+    ref = k7.tile_max_scores_plain(q, c, tile_rows)
+    torch.cuda.synchronize()
+    assert k7.ENTRY_LAUNCHES["int8_dot_sm90_launch"] == before + 1
+    assert got.shape == ref.shape == (65_536 // tile_rows, bz)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bf16", "int8_cast", "int8_native"])
+@pytest.mark.parametrize("d", [128, 192, 448, 704])
+def test_int8_dot_other_depths_equal_plain(route, d):
+    """Depths the kernel takes besides 768; at D % 128 == 64 the native
+    variant's last chunk is half past D (zero-filled by TMA)."""
+    dev = _device()
+    q, c = _k7_inputs(dev, 256, 8192, d, route, d)
+    got = k7.tile_max_scores(q, c, 256)
+    ref = k7.tile_max_scores_plain(q, c, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bf16", "int8_cast"])
+def test_int8_dot_agrees_on_normal_data_and_is_deterministic(route):
+    """Normal bf16 data: within 1e-5 relative of the plain version (only
+    the order of the fp32 sums differs); two launches give the same
+    bits."""
+    dev = _device()
+    q, c = _k7_inputs(dev, 512, 65_536, 768, route, 7, normal=True)
+    runs = [k7.tile_max_scores(q, c, 1024) for _ in range(2)]
+    ref = k7.tile_max_scores_plain(q, c, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(runs[0]), _bits(runs[1]))
+    assert bool(((runs[0] - ref).abs() <= 1e-5 * ref.abs()).all())
+
+
+@pytest.mark.cuda
+def test_int8_dot_raises_on_operands_the_kernel_does_not_take():
+    dev = _device()
+    q, c = _k7_inputs(dev, 128, 4096, 768, "int8_cast", 1)
+    for bad in (lambda: k7.tile_max_scores(q[:100], c, 128),   # B % 128
+                lambda: k7.tile_max_scores(q, c, 100),         # tile % 128
+                lambda: k7.tile_max_scores(q, c[:3840], 1024),  # N % tile
+                lambda: k7.tile_max_scores(q, c.cpu(), 128),    # devices
+                lambda: k7.tile_max_scores(q[:, :96].contiguous(),
+                                           c[:, :96].contiguous(), 128)):
+        with pytest.raises(ValueError):
+            bad()
+    for q_dtype, c_dtype in ((torch.float32, torch.int8),
+                             (torch.int8, torch.bfloat16),
+                             (torch.bfloat16, torch.float32)):
+        with pytest.raises(TypeError):
+            k7.tile_max_scores(q.to(q_dtype), c.to(c_dtype), 128)
+    # the C entry point itself refuses what the wrapper never sends it
+    from cldrd_tpu_torch.ops import _build
+
+    out = torch.empty(4096 // 128, 128, device=dev)
+    types = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int]
+    good = dict(qd=1, cd=2, b=128, n=4096, d=768, tile=128)
+    for bad in (dict(qd=0), dict(cd=0), dict(qd=2, cd=1), dict(b=100),
+                dict(b=0), dict(d=832), dict(d=736), dict(d=64),
+                dict(tile=100), dict(tile=384), dict(n=1 << 31)):
+        a = {**good, **bad}
+        with pytest.raises(RuntimeError):
+            _build.launch("int8_dot_sm90", "int8_dot_sm90_launch", types,
+                          q.data_ptr(), a["qd"], c.data_ptr(), a["cd"],
+                          out.data_ptr(), a["b"], a["n"], a["d"], a["tile"],
+                          device=dev)
 
 def _probe_inputs(dev, nb, slot, d, bz, p, c_dtype, scaled, seed,
                   integer=True):
@@ -1151,10 +1256,13 @@ def test_built_kernels_have_no_wgmma_register_hazards():
 
     paths = _build.build_all()
     counts = _wgmma_check.check_libraries(paths.values())
-    hgmma = {name.split("-")[0]: n for name, n in counts.items()}
+    hgmma = {name.split("-")[0]: n["HGMMA"] for name, n in counts.items()}
+    igmma = {name.split("-")[0]: n["IGMMA"] for name, n in counts.items()}
     assert hgmma["extract_topk_sm90"] > 0 and hgmma["attention_sm90"] > 0
     assert hgmma["fused_binmax_sm90"] > 0
     assert hgmma["attention_infer_d64"] > 0
+    # K7: bf16 products (bf16, int8_cast) and s8 ones (int8_native)
+    assert hgmma["int8_dot_sm90"] > 0 and igmma["int8_dot_sm90"] > 0
 
 
 @pytest.mark.cuda

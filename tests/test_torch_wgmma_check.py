@@ -98,3 +98,30 @@ def test_uncommitted_group_is_not_retired():
              "EXIT")
     hz = wc.hazards(_listing(*lines))
     assert [(h.hgmma.addr, h.insn.addr) for h in hz] == [(0x10, 0x30)]
+
+
+@pytest.mark.parametrize("op", ["HGMMA.64x128x16.F32.BF16",
+                                "IGMMA.64x128x32.S8.S8"])
+def test_integer_products_are_followed_like_float_ones(op):
+    """IGMMA (wgmma on s8 operands, s32 accumulators; cuobjdump prints
+    m64n128k32.s32.s8.s8 as IGMMA.64x128x32.S8.S8) is a product like
+    HGMMA: its 64 accumulator registers at N = 128 are followed to the
+    wait that retires it, and it is counted by opcode."""
+    lines = ("WARPGROUP.ARRIVE",
+             f"{op} R24, gdesc[UR4], R24",
+             f"{op} R24, gdesc[UR8], R24, gsb0",
+             "IMNMX R3, R87, R30, !PT",
+             "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+             "IMNMX R4, R87, R30, !PT",
+             "EXIT")
+    sass = _listing(*lines)
+    insns = wc.parse(sass)["_Z6kernelv"]
+    assert wc._written(insns[1]) == set(range(24, 88))
+    hz = wc.hazards(sass)
+    assert [(h.hgmma.addr, h.insn.addr, h.kind) for h in hz] == [
+        (0x10, 0x30, "accumulator touched"),
+        (0x20, 0x30, "accumulator touched")]
+    assert op[:5] in str(hz[0])
+    counts = wc.wgmma_counts(sass)
+    assert counts == {"HGMMA": 2 * (op[0] == "H"),
+                      "IGMMA": 2 * (op[0] == "I")}
