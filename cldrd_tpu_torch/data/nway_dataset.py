@@ -16,6 +16,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from cldrd_tpu_torch.utils.profiling import annotate
+
 from .label_modes import labels_for, nway_for
 from .loaders import load_passages, load_queries, load_train_examples, passage_text
 
@@ -201,4 +203,6 @@ class NwayDataset:
             idxs = order[start : start + batch_size]
             if len(idxs) < batch_size and drop_last:
                 break
-            yield self.collate([self[i] for i in idxs])
+            with annotate("cldrd.data.batch"):
+                batch = self.collate([self[i] for i in idxs])
+            yield batch

@@ -4,13 +4,16 @@
 background thread with a bounded queue, so batch N+1..N+depth are made
 while the device works on batch N. Order is preserved; producer
 exceptions re-raise at the consumer; if the consumer abandons the
-generator early, a stop event releases the producer thread.
+generator early, a stop event releases the producer thread. The
+consumer's wait for its next item is the span ``cldrd.data.wait``.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from cldrd_tpu_torch.utils.profiling import annotate
 
 T = TypeVar("T")
 
@@ -49,7 +52,8 @@ def prefetch(iterable: Iterable[T], depth: int = 4) -> Iterator[T]:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with annotate("cldrd.data.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if error:
                     raise error[0]

@@ -14,6 +14,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from cldrd_tpu_torch.utils.profiling import annotate
+
 from .loaders import load_passages, load_queries, passage_text
 
 
@@ -117,34 +119,39 @@ class RerankingDataset:
 
     def batches(self, batch_size: int) -> Iterator[RerankBatch]:
         for start in range(0, len(self.pairs), batch_size):
-            chunk = self.pairs[start : start + batch_size]
-            n = len(chunk)
-            queries = [self.qid_to_query[q] for q, _ in chunk]
-            passages = [
-                passage_text(self.pid_to_passage[p], self._sep) for _, p in chunk
-            ]
-            qids = np.full((batch_size,), -1, np.int64)
-            pids = np.full((batch_size,), -1, np.int64)
-            qids[:n] = [q for q, _ in chunk]
-            pids[:n] = [p for _, p in chunk]
-            if self.is_cross_encoder:
-                qp = self.tokenizer(
-                    queries, self.max_len, pairs=passages,
-                    **({"return_token_type_ids": True}
-                       if self.with_token_type_ids else {}),
-                )
-                yield RerankBatch(
-                    qids=qids, pids=pids, n_valid=n,
-                    query_passage=self._pad_tokens(qp, batch_size),
-                )
-            else:
-                q = self.tokenizer(queries, self.query_max_len)
-                p = self.tokenizer(passages, self.passage_max_len)
-                yield RerankBatch(
-                    qids=qids, pids=pids, n_valid=n,
-                    query=self._pad_tokens(q, batch_size),
-                    passage=self._pad_tokens(p, batch_size),
-                )
+            with annotate("cldrd.data.batch"):
+                batch = self._batch(self.pairs[start : start + batch_size],
+                                    batch_size)
+            yield batch
+
+    def _batch(self, chunk, batch_size: int) -> RerankBatch:
+        """Tokenize and collate ``chunk``'s pairs, padded to ``batch_size``."""
+        n = len(chunk)
+        queries = [self.qid_to_query[q] for q, _ in chunk]
+        passages = [
+            passage_text(self.pid_to_passage[p], self._sep) for _, p in chunk
+        ]
+        qids = np.full((batch_size,), -1, np.int64)
+        pids = np.full((batch_size,), -1, np.int64)
+        qids[:n] = [q for q, _ in chunk]
+        pids[:n] = [p for _, p in chunk]
+        if self.is_cross_encoder:
+            qp = self.tokenizer(
+                queries, self.max_len, pairs=passages,
+                **({"return_token_type_ids": True}
+                   if self.with_token_type_ids else {}),
+            )
+            return RerankBatch(
+                qids=qids, pids=pids, n_valid=n,
+                query_passage=self._pad_tokens(qp, batch_size),
+            )
+        q = self.tokenizer(queries, self.query_max_len)
+        p = self.tokenizer(passages, self.passage_max_len)
+        return RerankBatch(
+            qids=qids, pids=pids, n_valid=n,
+            query=self._pad_tokens(q, batch_size),
+            passage=self._pad_tokens(p, batch_size),
+        )
 
     def batches_packed(
         self,

@@ -20,6 +20,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from cldrd_tpu_torch.utils.profiling import annotate, spanned
+
 Scored = List[Tuple[int, float]]  # [(pid, teacher_score)] sorted desc
 
 
@@ -133,12 +135,17 @@ def rerank_candidates_with_teacher(
     else:
         batches = dataset.batches(batch_size)
     out: Dict[int, List[Tuple[int, float]]] = {}
-    for batch in batches:
-        scores = score_fn(batch)
-        for i in range(batch.n_valid):
-            out.setdefault(int(batch.qids[i]), []).append(
-                (int(batch.pids[i]), float(scores[i]))
-            )
-    return {
-        qid: sorted(scored, key=lambda x: -x[1]) for qid, scored in out.items()
-    }
+    # batches are tokenized and collated on this thread, as it waits
+    for batch in spanned(batches, "cldrd.data.wait"):
+        with annotate("cldrd.teacher.score"):
+            scores = score_fn(batch)
+        with annotate("cldrd.teacher.collect"):
+            for i in range(batch.n_valid):
+                out.setdefault(int(batch.qids[i]), []).append(
+                    (int(batch.pids[i]), float(scores[i]))
+                )
+    with annotate("cldrd.teacher.collect"):
+        return {
+            qid: sorted(scored, key=lambda x: -x[1])
+            for qid, scored in out.items()
+        }

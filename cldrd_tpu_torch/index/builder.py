@@ -33,6 +33,7 @@ from cldrd_tpu_torch.data.prefetch import prefetch
 from cldrd_tpu_torch.data.sequence_dataset import SequenceDataset
 from cldrd_tpu_torch.device import resolve_device, to_host_async
 from cldrd_tpu_torch.parallel.mesh import Mesh, Sharded
+from cldrd_tpu_torch.utils.profiling import annotate, spanned
 
 logger = logging.getLogger(__name__)
 
@@ -53,7 +54,8 @@ def _batch_stream(dataset, batch_size: int, bucket_lengths,
     pad at most one partial batch per bucket)."""
     if bucket_lengths is None:
         n_batches = -(-max(len(dataset), 1) // batch_size)
-        return dataset.batches(batch_size), batch_size, n_batches * batch_size
+        return (spanned(dataset.batches(batch_size), "cldrd.data.batch"),
+                batch_size, n_batches * batch_size)
     from cldrd_tpu_torch.data.bucketing import (
         bucket_specs,
         bucketize,
@@ -69,7 +71,8 @@ def _batch_stream(dataset, batch_size: int, bucket_lengths,
     else:
         it = bucketize(dataset.batches(batch_size), specs)
     max_bz = max(s.batch_size for s in specs)
-    return it, max_bz, max_emitted_rows(len(dataset), specs)
+    return (spanned(it, "cldrd.data.batch"), max_bz,
+            max_emitted_rows(len(dataset), specs))
 
 
 def compact_tokens(tokens: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -180,19 +183,21 @@ def encode_dataset(encode_fn: EncodeFn, dataset: SequenceDataset,
     def fetch():
         copies, n, ids = pending.popleft()
         host = []
-        for (part,), done in copies:
-            if done is not None:
-                done.synchronize()  # this batch's copy only
-            host.append(part.numpy())
+        with annotate("cldrd.index.fetch"):
+            for (part,), done in copies:
+                if done is not None:
+                    done.synchronize()  # this batch's copy only
+                host.append(part.numpy())
         emb_chunks.append(np.concatenate(host)[:n])
         id_chunks.append(ids)
 
     for batch in prefetch(batches, depth=prefetch_depth):
         n = batch.n_valid
-        embs = encode_fn(batch.tokens)
-        parts = embs.parts if isinstance(embs, Sharded) else [embs[:n]]
-        pending.append(([to_host_async(p) for p in parts], n,
-                        batch.ids[:n]))
+        with annotate("cldrd.index.encode"):
+            embs = encode_fn(batch.tokens)
+            parts = embs.parts if isinstance(embs, Sharded) else [embs[:n]]
+            pending.append(([to_host_async(p) for p in parts], n,
+                            batch.ids[:n]))
         if len(pending) > _IN_FLIGHT:
             fetch()
         n_batches += 1

@@ -30,6 +30,7 @@ from cldrd_tpu_torch.search.mips import (
     topk_binmax,
     topk_streaming,
 )
+from cldrd_tpu_torch.utils.profiling import annotate
 
 
 def _pad_rows(n: int, multiple: int) -> int:
@@ -449,7 +450,9 @@ class FlatIPIndex(HostIdCacheMixin):
         b_pad = -(-b // 128) * 128
         if b_pad != b:
             q = torch.cat([q, q[:1].expand(b_pad - b, q.shape[1])])
-        s, i = self._recover_resolve(q, k, b, *self._search_device(q, k))
+        with annotate("cldrd.search.dispatch"):
+            found = self._search_device(q, k)
+        s, i = self._recover_resolve(q, k, b, *found)
         return s[:b], i[:b]
 
     def _device_pos_ids(self) -> torch.Tensor:
@@ -519,21 +522,23 @@ class FlatIPIndex(HostIdCacheMixin):
         """Fetch device results, re-run certificate-miss queries exactly
         (first ``n_valid`` rows only: pad rows are sliced off anyway) and
         map positions to external ids on the host."""
-        s, i = s.cpu().numpy(), i.cpu().numpy()
-        if ok is not None:
-            bad = np.nonzero(~ok.cpu().numpy()[:n_valid])[0]
-            if bad.size:
-                self.rescued_queries += int(bad.size)
-                rs, rp = self._rescan_exact(
-                    q[torch.from_numpy(bad).to(q.device)], k)
-                s = s.copy()
-                i = i.copy()
-                s[bad] = rs
-                i[bad] = rp
-        if positions:
-            ids = self._host_ids()
-            i = np.where(i >= 0, ids[np.maximum(i, 0)], -1)
-        return s, i
+        with annotate("cldrd.search.resolve"):
+            s, i = s.cpu().numpy(), i.cpu().numpy()
+            if ok is not None:
+                bad = np.nonzero(~ok.cpu().numpy()[:n_valid])[0]
+                if bad.size:
+                    self.rescued_queries += int(bad.size)
+                    with annotate("cldrd.search.rescue"):
+                        rs, rp = self._rescan_exact(
+                            q[torch.from_numpy(bad).to(q.device)], k)
+                    s = s.copy()
+                    i = i.copy()
+                    s[bad] = rs
+                    i[bad] = rp
+            if positions:
+                ids = self._host_ids()
+                i = np.where(i >= 0, ids[np.maximum(i, 0)], -1)
+            return s, i
 
     def search_batched(self, queries, k: int, batch_size: int = 128,
                        max_in_flight: int = 4
@@ -555,7 +560,8 @@ class FlatIPIndex(HostIdCacheMixin):
         def drain_one():
             start, n, q_dev, fetched, done = pending.pop(0)
             if done is not None:
-                done.synchronize()
+                with annotate("cldrd.search.fetch"):
+                    done.synchronize()
             s, i = self._recover_resolve(
                 q_dev, k, n, fetched[0], fetched[1], True,
                 fetched[2] if len(fetched) > 2 else None)
@@ -567,9 +573,10 @@ class FlatIPIndex(HostIdCacheMixin):
             n = q.shape[0]
             if n < batch_size:
                 q = torch.cat([q, q[:1].expand(batch_size - n, d)])
-            s, i, _, ok = self._search_device(q, k)
-            pending.append((start, n, q) + to_host_async(
-                s, i, *(() if ok is None else (ok,))))
+            with annotate("cldrd.search.dispatch"):
+                s, i, _, ok = self._search_device(q, k)
+                pending.append((start, n, q) + to_host_async(
+                    s, i, *(() if ok is None else (ok,))))
             if len(pending) >= max_in_flight:
                 drain_one()
         while pending:

@@ -64,7 +64,7 @@ from cldrd_tpu_torch.parallel.multihost import (
     local_device,
     world,
 )
-from cldrd_tpu_torch.utils import AverageMeter, write_train_logs
+from cldrd_tpu_torch.utils import AverageMeter, annotate, write_train_logs
 
 from .checkpoint import (
     load_checkpoint,
@@ -164,10 +164,11 @@ def _gather_rows(x: torch.Tensor, rank: int, n: int) -> torch.Tensor:
     """All ranks' ``x`` concatenated along dim 0; this rank's rows keep
     their autograd graph, the others arrive as constants (their gradient
     is their own rank's)."""
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.detach().contiguous())
-    parts[rank] = x
-    return torch.cat(parts)
+    with annotate("cldrd.train.gather"):
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.detach().contiguous())
+        parts[rank] = x
+        return torch.cat(parts)
 
 
 class Trainer:
@@ -257,15 +258,16 @@ class Trainer:
         """Rank 0 writes for the group; every rank calls this at the same
         step and leaves it once the file exists."""
         path = os.path.join(self.run_dir, f"checkpoint_{step}.pth.tar")
-        if self.is_first:
-            path = save_checkpoint(
-                {"state_dict": dual_encoder_to_reference(
-                    self.model.state_dict()),
-                 "optimizer": self.optimizer.state_dict(),
-                 "scheduler": self.optimizer.scheduler.state_dict(),
-                 "step": step, "epoch": epoch}, self.run_dir, step)
-        if self._host is not None:
-            dist.barrier(group=self._host)
+        with annotate("cldrd.train.checkpoint"):
+            if self.is_first:
+                path = save_checkpoint(
+                    {"state_dict": dual_encoder_to_reference(
+                        self.model.state_dict()),
+                     "optimizer": self.optimizer.state_dict(),
+                     "scheduler": self.optimizer.scheduler.state_dict(),
+                     "step": step, "epoch": epoch}, self.run_dir, step)
+            if self._host is not None:
+                dist.barrier(group=self._host)
         return path
 
     # ---------------------------------------------------------- main loop
@@ -356,34 +358,38 @@ class Trainer:
               loss_fn) -> Dict[str, torch.Tensor]:
         """One micro-step: forward, backward, optimizer (every k-th)."""
         cfg = self.cfg
-        logits = self._logits(batch, rng)
-        labels, teacher = batch["labels"], batch["teacher_scores"]
-        if cfg.in_batch_loss:
-            pad = labels.new_full((labels.shape[0],
-                                   logits.shape[1] - labels.shape[1]),
-                                  IN_BATCH_PAD)
-            labels = torch.cat([labels, pad], dim=-1)
-            teacher = torch.cat([teacher, pad], dim=-1)
-        loss = loss_fn(logits, labels, teacher)
-        reg = torch.zeros((), device=logits.device)
-        if cfg.reg_lambda > 0.0 and not cfg.in_batch_loss:
-            reg = torch.linalg.vector_norm(logits.reshape(-1)) * \
-                cfg.reg_lambda
-            loss = loss + reg
+        with annotate("cldrd.train.forward"):
+            logits = self._logits(batch, rng)
+            labels, teacher = batch["labels"], batch["teacher_scores"]
+            if cfg.in_batch_loss:
+                pad = labels.new_full((labels.shape[0],
+                                       logits.shape[1] - labels.shape[1]),
+                                      IN_BATCH_PAD)
+                labels = torch.cat([labels, pad], dim=-1)
+                teacher = torch.cat([teacher, pad], dim=-1)
+            loss = loss_fn(logits, labels, teacher)
+            reg = torch.zeros((), device=logits.device)
+            if cfg.reg_lambda > 0.0 and not cfg.in_batch_loss:
+                reg = torch.linalg.vector_norm(logits.reshape(-1)) * \
+                    cfg.reg_lambda
+                loss = loss + reg
         params = self.optimizer.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        with annotate("cldrd.train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
         if self.distributed:
             # each rank holds its rows' share of the global gradient
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat)
-            grads = [f.view_as(g) for f, g in zip(
-                flat.split([g.numel() for g in grads]), grads)]
-        gnorm = global_norm(grads)
-        with torch.no_grad():
-            self.optimizer.step(grads)
-            mrr, recall = batch_mrr_recall(logits.detach(), labels)
+            with annotate("cldrd.train.allreduce"):
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                dist.all_reduce(flat)
+                grads = [f.view_as(g) for f, g in zip(
+                    flat.split([g.numel() for g in grads]), grads)]
+        with annotate("cldrd.train.optimizer"):
+            gnorm = global_norm(grads)
+            with torch.no_grad():
+                self.optimizer.step(grads)
+                mrr, recall = batch_mrr_recall(logits.detach(), labels)
         return {"loss": loss.detach(), "mrr": mrr, "recall": recall,
                 "reg_loss": reg.detach(), "grad_norm": gnorm}
 
@@ -400,22 +406,24 @@ class Trainer:
         def flush():
             if not pending:
                 return
-            names = list(pending[0][1])
-            values = torch.stack([torch.stack([m[n].float() for n in names])
-                                  for _, m in pending]).cpu().tolist()
-            for (step, _), row in zip(pending, values):
-                m = dict(zip(names, row))
-                self._check_finite(m, step)
-                meters["loss"].update(m["loss"])
-                meters["mrr"].update(m["mrr"])
-                meters["recall"].update(m["recall"])
-                if cfg.reg_lambda > 0.0:
-                    meters["reg"].update(m["reg_loss"])
-                    meters["aux"].update(m["reg_loss"]
-                                         / max(m["loss"], 1e-12))
-                if step_hook is not None:
-                    step_hook(step, m)
-            pending.clear()
+            with annotate("cldrd.train.flush"):
+                names = list(pending[0][1])
+                values = torch.stack([
+                    torch.stack([m[n].float() for n in names])
+                    for _, m in pending]).cpu().tolist()
+                for (step, _), row in zip(pending, values):
+                    m = dict(zip(names, row))
+                    self._check_finite(m, step)
+                    meters["loss"].update(m["loss"])
+                    meters["mrr"].update(m["mrr"])
+                    meters["recall"].update(m["recall"])
+                    if cfg.reg_lambda > 0.0:
+                        meters["reg"].update(m["reg_loss"])
+                        meters["aux"].update(m["reg_loss"]
+                                             / max(m["loss"], 1e-12))
+                    if step_hook is not None:
+                        step_hook(step, m)
+                pending.clear()
 
         first_checked = False
         local_bz = cfg.batch_size // self.world
@@ -434,8 +442,9 @@ class Trainer:
                 rng = DropoutRNG(cfg.seed, global_step, self.device,
                                  stream=self.rank if self.world > 1
                                  else None)
-                metrics = self._step(batch_to_device(batch, self.device,
-                                                     rows), rng, loss_fn)
+                with annotate("cldrd.train.h2d"):
+                    on_device = batch_to_device(batch, self.device, rows)
+                metrics = self._step(on_device, rng, loss_fn)
                 global_step += 1
                 pending.append((global_step, metrics))
                 if (global_step % cfg.logging_steps == 0

@@ -5,11 +5,17 @@ held to ``cldrd_tpu/utils/profiling.py`` on the CPU: ``PhaseTimer`` and
 the ops run inside them; a second profiler session raises, as
 ``jax.profiler.start_trace`` does, and leaves the outer one running; and
 ``cli.retrieve --profile-dir`` traces the search phase alone and writes
-the untraced run file byte for byte."""
+the untraced run file byte for byte. The port's spans: off, ``annotate``
+is one shared no-op; a ``collect`` collector counts them from every
+thread; under ``trace`` the Trainer, the encode and search and the
+teacher write their ``cldrd.*`` ranges in order and nesting; and a
+collector leaves a training run's parameters bit for bit."""
 import contextlib
 import io
 import os
 import sys
+import threading
+import time
 import types
 
 import numpy as np
@@ -22,6 +28,16 @@ import cldrd_tpu_torch.utils as t_utils
 from cldrd_tpu.utils import profiling as j_prof
 from cldrd_tpu_torch.cli import index as t_index
 from cldrd_tpu_torch.cli import retrieve as t_retrieve
+from cldrd_tpu_torch.data import (
+    HashTokenizer,
+    NwayDataset,
+    SequenceDataset,
+    prefetch,
+)
+from cldrd_tpu_torch.data.teacher import rerank_candidates_with_teacher
+from cldrd_tpu_torch.index import FlatIPIndex, encode_dataset, make_encode_fn
+from cldrd_tpu_torch.models import DistilBertConfig, NwayDualEncoder
+from cldrd_tpu_torch.train import TrainConfig, Trainer
 from cldrd_tpu_torch.utils import profiling as t_prof
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -185,3 +201,229 @@ def test_cli_retrieve_profile_dir(tmp_path, monkeypatch):
     names = {e["name"] for e in _ops(t_prof.read_trace(prof))}
     assert "aten::embedding" not in names  # the encode is outside
     assert "aten::mm" in names or "aten::matmul" in names  # the search
+
+
+# ------------------------------------------------------------ the spans
+
+
+def test_annotate_off_is_one_shared_noop(monkeypatch):
+    def no_range(name):
+        raise AssertionError(f"record_function({name!r}) with no session")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    assert not torch.autograd._profiler_enabled()
+    off = t_prof.annotate("cldrd.data.wait")
+    assert off is t_prof.annotate("cldrd.train.h2d")
+    with off:
+        with t_prof.annotate("cldrd.train.h2d"):
+            pass
+    # a collector takes spans without opening a range either
+    timer = t_prof.PhaseTimer()
+    with t_prof.collect(timer) as got:
+        assert got is timer
+        for _ in range(3):
+            with t_prof.annotate("cldrd.train.h2d"):
+                pass
+    assert timer.counts() == {"cldrd.train.h2d": 3}
+    assert t_prof.annotate("cldrd.train.h2d") is off  # removed again
+
+
+def test_phase_timer_counts_calls_and_keeps_its_report():
+    timer = t_prof.PhaseTimer()
+    timer.add("encode", 0.25)
+    with timer.phase("search"):
+        pass
+    timer.add("encode", 0.5)
+    assert timer.counts() == {"encode": 2, "search": 1}
+    assert list(timer.totals()) == ["encode", "search"]
+    assert timer.totals()["encode"] == 0.75
+    assert list(timer.report()) == ["encode_s", "search_s", "total_s"]
+
+
+def test_collector_takes_spans_from_every_thread():
+    """The main thread and a ``prefetch`` producer thread feed one
+    collector, and two threads using one name count exactly."""
+
+    def made(n):
+        for i in range(n):
+            with t_prof.annotate("cldrd.data.batch"):
+                item = i
+            yield item
+
+    timer = t_prof.PhaseTimer()
+    with t_prof.collect(timer):
+        assert list(prefetch(made(7), depth=2)) == list(range(7))
+        with t_prof.annotate("cldrd.data.batch"):
+            pass
+
+        def many():
+            for _ in range(2000):
+                with t_prof.annotate("cldrd.x"):
+                    pass
+
+        # more threads than cores, switching often: a lost update shows
+        threads = [threading.Thread(target=many)
+                   for _ in range((os.cpu_count() or 1) + 2)]
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(switch)
+        assert not any(t.is_alive() for t in threads)
+    counts = timer.counts()
+    assert counts["cldrd.data.batch"] == 8  # 7 produced + 1 on main
+    assert counts["cldrd.data.wait"] == 8  # 7 items + the end
+    assert counts["cldrd.x"] == 2000 * len(threads)
+    assert all(v >= 0 for v in timer.totals().values())
+
+
+def test_a_slow_producer_shows_as_data_wait():
+    """A sleep planted in the ``prefetch`` producer lands in the
+    consumer's ``cldrd.data.wait``, not elsewhere."""
+
+    def waits(pause):
+        def made():
+            for i in range(5):
+                time.sleep(pause)
+                yield i
+
+        timer = t_prof.PhaseTimer()
+        with t_prof.collect(timer):
+            assert list(prefetch(made(), depth=2)) == list(range(5))
+        return timer.totals()["cldrd.data.wait"]
+
+    assert waits(0.04) >= 0.15 > waits(0.0)
+
+
+def _cldrd_ranges(events):
+    """(name, start, end) of the ``cldrd.`` ranges, by start."""
+    return sorted(((e["name"], e["ts"], e["ts"] + e["dur"])
+                   for e in _ops(events, ("user_annotation",))
+                   if e["name"].startswith("cldrd.")),
+                  key=lambda r: (r[1], -r[2]))
+
+
+def _tree(ranges):
+    """Each range's name and its innermost enclosing range's name."""
+    out = []
+    for i, (name, a, b) in enumerate(ranges):
+        parents = [r for r in ranges[:i] if r[1] <= a and b <= r[2]]
+        out.append((name, parents[-1][0] if parents else None))
+    return out
+
+
+def _nway(n=4):
+    queries = {q: f"query about topic {q}" for q in range(n)}
+    passages, examples = {}, []
+    for q in range(n):
+        pids = list(range(6 * q, 6 * q + 6))
+        for p in pids:
+            passages[p] = f"passage {p} about topic {q} " + "x " * (p % 4)
+        examples.append({"qid": q, "relT_pids": pids[:1],
+                         "neg_pids": pids[1:]})
+    return NwayDataset(queries, passages, examples,
+                       HashTokenizer(vocab_size=512), max_query_len=8,
+                       max_passage_len=12, label_mode="1")
+
+
+def _trainer(tmp_path, name):
+    cfg = TrainConfig(label_mode="1", batch_size=2, num_train_epochs=1,
+                      learning_rate=1e-3, warmup_steps=1, logging_steps=1,
+                      evaluate_steps=100, max_query_len=8,
+                      max_passage_len=12, compute_dtype="float32", seed=3,
+                      run_folder=str(tmp_path), experiment_name=name,
+                      pack_passages=False)
+    return Trainer(cfg, DistilBertConfig.tiny(), device="cpu")
+
+
+def test_train_spans_in_the_trace(tmp_path):
+    trainer = _trainer(tmp_path, "traced")
+    logdir = str(tmp_path / "trace")
+    with t_prof.trace(logdir):
+        assert trainer.train(_nway()).step == 2
+    step = ["cldrd.data.wait", "cldrd.train.h2d", "cldrd.train.forward",
+            "cldrd.train.backward", "cldrd.train.optimizer",
+            "cldrd.train.flush"]
+    tree = _tree(_cldrd_ranges(t_prof.read_trace(logdir)))
+    assert [n for n, _ in tree] == step * 2 + ["cldrd.data.wait",
+                                               "cldrd.train.checkpoint"]
+    assert all(parent is None for _, parent in tree)
+
+
+def test_encode_and_search_spans_in_the_trace(tmp_path, monkeypatch):
+    """``encode_dataset`` then ``search_batched`` with every query's
+    certificate failed, so each resolve holds a rescue."""
+    torch.manual_seed(0)
+    model = NwayDualEncoder(DistilBertConfig.tiny())
+    texts = {i: f"query number {i} " + "y " * (i % 5) for i in range(40)}
+    dataset = SequenceDataset(texts, HashTokenizer(vocab_size=512), 10,
+                              is_query=True)
+    rng = np.random.default_rng(0)
+    index = FlatIPIndex.build(rng.standard_normal((4096, 32), np.float32),
+                              np.arange(4096), dtype=torch.float32,
+                              device="cpu")
+    orig = FlatIPIndex._search_device
+
+    def missed(self, q, k):
+        s, i, positions, ok = orig(self, q, k)
+        return s, i, positions, torch.zeros_like(ok)
+
+    monkeypatch.setattr(FlatIPIndex, "_search_device", missed)
+    logdir = str(tmp_path / "trace")
+    with t_prof.trace(logdir):
+        q, _ = encode_dataset(make_encode_fn(model, "query_embs"), dataset,
+                              16)
+        index.search_batched(q, 10, batch_size=128)
+    assert index.rescued_queries == 40
+    tree = _tree(_cldrd_ranges(t_prof.read_trace(logdir)))
+    wait, encode = ("cldrd.data.wait", None), ("cldrd.index.encode", None)
+    # batches are made on the producer thread: not in the trace
+    assert tree == [wait, encode] * 3 + [wait] + [
+        ("cldrd.index.fetch", None)] * 3 + [
+        ("cldrd.search.dispatch", None), ("cldrd.search.resolve", None),
+        ("cldrd.search.rescue", "cldrd.search.resolve")]
+
+
+def test_teacher_spans_in_the_trace(tmp_path):
+    queries = {q: f"query {q}" for q in range(3)}
+    passages = {p: f"passage {p} " + "z " * (p % 3) for p in range(12)}
+    lists = {q: list(range(4 * q, 4 * q + 4)) for q in range(3)}
+
+    def score_fn(batch):
+        ids = torch.from_numpy(batch.query_passage["input_ids"])
+        return ids.float().sin().sum(1).numpy()
+
+    logdir = str(tmp_path / "trace")
+    with t_prof.trace(logdir):
+        out = rerank_candidates_with_teacher(
+            lists, score_fn, queries, passages,
+            HashTokenizer(vocab_size=512), max_len=16, batch_size=5)
+    assert sorted(out) == [0, 1, 2]
+    tree = _tree(_cldrd_ranges(t_prof.read_trace(logdir)))
+    one = [("cldrd.data.wait", None), ("cldrd.data.batch", "cldrd.data.wait"),
+           ("cldrd.teacher.score", None), ("cldrd.teacher.collect", None)]
+    assert tree == one * 3 + [("cldrd.data.wait", None),
+                              ("cldrd.teacher.collect", None)]
+
+
+def test_collector_leaves_training_bit_for_bit(tmp_path):
+    off = _trainer(tmp_path / "off", "off").train(_nway())
+    timer = t_prof.PhaseTimer()
+    with t_prof.collect(timer):
+        on = _trainer(tmp_path / "on", "on").train(_nway())
+    assert on.step == off.step == 2
+    assert off.params.keys() == on.params.keys()
+    for k, v in off.params.items():
+        assert torch.equal(v, on.params[k]), k
+    counts = timer.counts()
+    for name in ("cldrd.train.h2d", "cldrd.train.forward",
+                 "cldrd.train.backward", "cldrd.train.optimizer",
+                 "cldrd.train.flush"):
+        assert counts[name] == 2, name
+    assert counts["cldrd.data.batch"] == 2  # on the producer thread
+    assert counts["cldrd.data.wait"] == 3
+    assert counts["cldrd.train.checkpoint"] == 1
