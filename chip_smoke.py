@@ -85,7 +85,13 @@ Phases (each raises on any failure; the script then exits non-zero):
    last eighth of the batch all masked: within 2e-2 of its plain
    version, EQUAL on exact inputs (attention_infer_d64.cu also with a
    mask that has holes), timed beside its bound and SDPA, and
-   attention_infer_d64.cu beside the sm90 forward forced.
+   attention_infer_d64.cu beside the sm90 forward forced. The fused
+   dropout -> residual add -> LayerNorm (residual_norm.cu) at the
+   passage tower's training sites (61,440 x 768 bf16, dropout 0.1,
+   forward and backward) and the teacher's (32,768 x 384, no gradient):
+   within one bf16 ulp plus what the row sums' order moves of its plain
+   version (ops/residual_norm.py::compare_to_plain), timed beside the
+   plain chain, the chain with F.layer_norm and the bytes it must move.
    Every time in the kernels line is a device time: the summed
    durations of the kernels one call launches
    (torch.profiler; a trace whose kernel counts show lost records is
@@ -231,8 +237,9 @@ fused_binmax_sm90_launch), and every K5 launch through those its path
 names (K5_ENTRIES: attn_infer_short_launch and attn_infer_d64_launch
 on the train, pipeline and multi paths, attn_infer_d32_launch too on
 the teacher and serve paths; the sm90 forward's and the tiled forward's
-K5 counts are read and must stay 0); K5 is also counted by (entry
-point, B, L)
+K5 counts are read and must stay 0); every path but search must launch
+the fused LayerNorm's forward, and the train and multi paths its
+backward; K5 is also counted by (entry point, B, L)
 (ops/attention.py::SHAPE_LAUNCHES). The kernels line sums the six
 windows, K5's launches by shape included; K7, on no path, adds the
 window of the kernels phase's A/B (its timed calls). The serve phase checks
@@ -319,6 +326,14 @@ TEACHER_SAMPLE = 256   # pairs held to the plain attention
 # plain attention with the mask ignored 0.46-1.76
 # (tools/teacher_check_seeds.py)
 TEACHER_SAMPLE_TOL = 0.2
+# the fused dropout -> residual add -> LayerNorm at the main path's two
+# shapes, (rows, D, p, gradient): the passage tower's training sites
+# (240 x 256 rows of 768, dropout 0.1) and the teacher's (128 x 256 rows
+# of 384, no gradient)
+RN_SHAPES = {"train": (TRAIN_BZ * NWAY * TRAIN_LP, D, ATTN_P, True),
+             "infer": (TEACHER_BATCH * TEACHER_L,
+                       TEACHER_HEADS * TEACHER_HEAD_DIM, 0.0, False)}
+RN_EPS = 1e-12
 N_EXPORT = 4096        # passages the export round trip indexes
 # K5 at the length buckets' shapes (data/bucketing.py's default ladder,
 # token-balanced): passages at --batch-size 512, --max-length 256 (head_dim
@@ -912,6 +927,8 @@ def phase_kernels(ctx):
     _teacher_attention(ctx)
     torch.cuda.empty_cache()
     _ladder_checks(ctx)
+    torch.cuda.empty_cache()
+    _residual_norm(ctx)
 
     # K1 and K2 held to their plain versions and timed at B=512, N=1M bf16
     # (K1 at the bf16 store's shape; K2 at the shape of its earlier rows)
@@ -1630,6 +1647,94 @@ def _teacher_attention(ctx):
         f"{row['bound'][0]:.4f} ({row['bound'][1]}; {row['real_keys']} "
         "real keys)")
     del q, k, v, mask, amask, qt, kt, vt
+
+
+def _residual_norm(ctx):
+    """The fused dropout -> residual add -> LayerNorm (residual_norm.cu)
+    held to its plain version on card tensors at RN_SHAPES, element by
+    element (ops/residual_norm.py::compare_to_plain: one bf16 ulp plus
+    what the order of the fp32 row sums moves), forward and backward at
+    the train shape, the forward alone at the teacher's; each timed beside
+    the plain chain, the same chain with the library's LayerNorm
+    (F.layer_norm, bf16 weight and bias) and its bound: the bytes of the
+    tensors it reads and writes, each once (the backward's partial rows
+    of dw and db, its own traffic, are not counted)."""
+    import torch.nn.functional as F
+
+    from cldrd_tpu_torch.ops import residual_norm as rn
+
+    dev, gen, bf16 = ctx["dev"], ctx["gen"], torch.bfloat16
+    timings = ctx.setdefault("timings", {})
+    fwd_rows, errs = {}, {}
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    for tag, (rows, d, p, grad) in RN_SHAPES.items():
+        x, r, dy = (torch.randn(rows, d, generator=gen, device=dev).to(bf16)
+                    for _ in range(3))
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        u = torch.rand(rows, d, generator=gen, device=dev) if p else None
+        errs[tag] = rn.compare_to_plain(x, r, w, b, RN_EPS, u, p,
+                                        dy if grad else None)
+        leaves = [t.clone().requires_grad_(grad) for t in (x, r, w, b)]
+
+        def plain():
+            return rn.dropout_add_layer_norm_plain(*leaves, RN_EPS, u, p)
+
+        def library():
+            xx, rr, ww, bb = leaves
+            if u is not None:
+                xx = torch.where(u >= p, xx / (1.0 - p),
+                                 torch.zeros_like(xx))
+            return F.layer_norm(xx + rr, (d,), ww.to(bf16), bb.to(bf16),
+                                RN_EPS)
+
+        def fwd():
+            return rn._launch_fwd(x, r, w, b, RN_EPS, u, p, grad)
+
+        y, s, keep, stats = fwd()
+        with torch.set_grad_enabled(grad):
+            fwd_rows[tag] = dict(
+                ms=device_ms(fwd), plain_ms=device_ms(plain),
+                library_ms=device_ms(library),
+                bound=bound_ms(nbytes(x, r, u, w, b, y, *(
+                    (s, keep, stats) if grad else ())), 0, "fp32"),
+                library_note="the chain with F.layer_norm",
+                T=rows, D=d, p=p, gradient=grad)
+        if grad:
+            def bwd():
+                return rn._launch_bwd(dy, s, keep, stats, w, p, True)
+
+            y_plain, y_lib = plain(), library()
+            outs = bwd()
+            timings["residual_norm_bwd"] = {tag: dict(
+                ms=device_ms(bwd),
+                plain_ms=device_ms(lambda: torch.autograd.grad(
+                    y_plain, leaves, dy, retain_graph=True)),
+                library_ms=device_ms(lambda: torch.autograd.grad(
+                    y_lib, leaves, dy, retain_graph=True)),
+                bound=bound_ms(nbytes(dy, s, keep, stats, w, *outs), 0,
+                               "fp32"),
+                library_note="the chain with F.layer_norm",
+                T=rows, D=d, p=p)}
+            del y_plain, y_lib, outs
+        del x, r, dy, w, b, u, leaves, y, s, keep, stats
+        torch.cuda.empty_cache()
+    timings["residual_norm_fwd"] = fwd_rows
+    ctx["rn_err"] = errs
+    for tag, row in fwd_rows.items():
+        rows = [("forward", row)]
+        if tag in timings["residual_norm_bwd"]:
+            rows.append(("backward", timings["residual_norm_bwd"][tag]))
+        log(f"[kernels] residual_norm.cu at T={row['T']} D={row['D']} bf16 "
+            f"p={row['p']}, residual, gradient {row['gradient']}: agrees "
+            f"with the plain version (max abs err {errs[tag]}; one bf16 ulp "
+            "plus the row sums' order); device ms: " + "; ".join(
+                f"{what} {t['ms']:.4f} (plain {t['plain_ms']:.4f}, with "
+                f"F.layer_norm {t['library_ms']:.4f}, bound "
+                f"{t['bound'][0]:.4f} {t['bound'][1]})" for what, t in rows))
 
 
 def _ladder_mask(ctx, b, length):
@@ -5142,6 +5247,13 @@ KERNELS = [
     # K7 lies on no path: its launches are the kernels phase's A/B
     ("int8_dot", ("int8_dot", None), "csrc/int8_dot_sm90.cu",
      "examples/bench_int8_dot.py:37", "int8_native", "k7_err"),
+    # no TPU kernel: XLA fuses the JAX block's Dropout, add and LayerNorm;
+    # every LayerNorm site of the port's encoders (the train shape timed,
+    # the teacher's among the forward's other shapes)
+    ("residual_norm_fwd", ("residual_norm", "fwd"), "csrc/residual_norm.cu",
+     "cldrd_tpu/models/distilbert.py:341", "train", "rn_err"),
+    ("residual_norm_bwd", ("residual_norm", "bwd"), "csrc/residual_norm.cu",
+     "cldrd_tpu/models/distilbert.py:341", "train", "rn_err"),
 ]
 
 
@@ -5152,11 +5264,12 @@ def _counters():
         fused_binmax,
         int8_dot,
         ivf_probe,
+        residual_norm,
     )
 
     return {"extract_topk": extract_topk, "fused_binmax": fused_binmax,
             "attention": attention, "ivf_probe": ivf_probe,
-            "int8_dot": int8_dot}
+            "int8_dot": int8_dot, "residual_norm": residual_norm}
 
 
 # the C entry points whose launches the paths must show: every K1 and K2
@@ -5300,18 +5413,22 @@ def main(argv=None) -> int:
              ("extract_topk", "fused_binmax")),
             ("train", phase_train,
              ("attention_train_fwd", "attention_train_bwd", "extract_topk",
-              "attention_infer", "attention_infer_d64")),
+              "attention_infer", "attention_infer_d64", "residual_norm_fwd",
+              "residual_norm_bwd")),
             ("pipeline", phase_pipeline,
-             ("extract_topk", "attention_infer", "attention_infer_d64")),
+             ("extract_topk", "attention_infer", "attention_infer_d64",
+              "residual_norm_fwd")),
             ("teacher", phase_teacher,
              ("attention_infer", "attention_infer_d64",
-              "attention_infer_d32")),
+              "attention_infer_d32", "residual_norm_fwd")),
             ("serve", phase_serve,
-             ("ivf_probe", "extract_topk", "attention_infer_d32")),
+             ("ivf_probe", "extract_topk", "attention_infer_d32",
+              "residual_norm_fwd")),
             ("multi", phase_multi,
              ("extract_topk", "fused_binmax", "ivf_probe",
               "attention_train_fwd", "attention_train_bwd",
-              "attention_infer", "attention_infer_d64"))):
+              "attention_infer", "attention_infer_d64", "residual_norm_fwd",
+              "residual_norm_bwd"))):
         reset_launches()
         own = run(name, fn)
         # the serve phase checks its answers through the same kernels, so
@@ -5347,7 +5464,8 @@ def main(argv=None) -> int:
                                 "attn_err_fp32",
                                 "attn_err_bf16",
                                 "k5_err", "k1_checked", "build_s",
-                                "k7_err", "k7_summary", "wgmma_counts")}))
+                                "k7_err", "k7_summary", "wgmma_counts",
+                                "rn_err")}))
     log(smi_line())
     def by_shape(counter):
         """The main path's K5 launches of one entry point, by B x L."""

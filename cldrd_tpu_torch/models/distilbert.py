@@ -11,7 +11,10 @@ encoder:
 - attention scales Q (not the logits) in the compute dtype, takes fp32
   scores, masks with -1e9, runs softmax in fp32, then casts the probs;
 - GELU is the exact (erf) form;
-- LayerNorm has eps 1e-12 and takes its statistics in fp32;
+- LayerNorm has eps 1e-12 and takes its statistics in fp32; each block's
+  dropout -> residual add -> LayerNorm is one fused op
+  (``ops/residual_norm.py``: kernels on the card, the plain chain on the
+  CPU), fed the same ``torch.rand`` draws as the unfused chain;
 - ``cls_only`` on the last block computes position 0 only: a one-row
   query, residual and FFN;
 - packed rows (``data/packing.py``) take ``position_ids`` (per-segment
@@ -56,6 +59,7 @@ from cldrd_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_train,
 )
+from cldrd_tpu_torch.ops.residual_norm import dropout_add_layer_norm
 
 # masked attention logit; softmax subtracts the row max, so this fully
 # suppresses masked positions without inf - inf
@@ -96,13 +100,19 @@ class DropoutRNG:
     def next_seed(self) -> int:
         return int(self._host.integers(-2**31, 2**31, dtype=np.int64))
 
+    def uniforms(self, x: torch.Tensor, p: float) -> Optional[torch.Tensor]:
+        """The draw behind a dropout mask of x's shape (kept where
+        ``>= p``), or None at p == 0, where nothing is drawn."""
+        if p == 0.0:
+            return None
+        return torch.rand(x.shape, generator=self.generator, device=x.device)
+
     def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
         """flax ``Dropout``: keep with probability 1-p, scale by 1/(1-p)."""
-        if p == 0.0:
+        u = self.uniforms(x, p)
+        if u is None:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= p
-        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+        return torch.where(u >= p, x / (1.0 - p), torch.zeros_like(x))
 
 
 class _ReplayRNG(DropoutRNG):
@@ -176,14 +186,16 @@ def _linear(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, output in the input's dtype."""
+    """LayerNorm with fp32 statistics, output in the input's dtype; with a
+    ``residual`` (and the branch's dropout ``uniforms``), of
+    ``dropout(x) + residual``, fused (``ops/residual_norm.py``)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = (x32 - mean).square().mean(-1, keepdim=True)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                uniforms: Optional[torch.Tensor] = None,
+                p: float = 0.0) -> torch.Tensor:
+        return dropout_add_layer_norm(x, residual, self.weight, self.bias,
+                                      self.eps, uniforms, p)
 
 
 class Embeddings(nn.Module):
@@ -332,14 +344,18 @@ class TransformerBlock(nn.Module):
                 cls_only: bool = False) -> torch.Tensor:
         sa_out = self.attention(hidden, attention_mask, segment_ids, rng,
                                 cls_only)
-        if rng is not None:
-            sa_out = rng.dropout(sa_out, self.p)
-        residual = hidden[:, :1] if cls_only else hidden
-        hidden = self.sa_layer_norm(sa_out + residual)
+        residual = hidden[:, :1].contiguous() if cls_only else hidden
+        hidden = self._add_norm(self.sa_layer_norm, sa_out, residual, rng)
         ffn = self.ffn(hidden)
-        if rng is not None:
-            ffn = rng.dropout(ffn, self.p)
-        return self.output_layer_norm(ffn + hidden)
+        return self._add_norm(self.output_layer_norm, ffn, hidden, rng)
+
+    def _add_norm(self, norm: LayerNorm, branch: torch.Tensor,
+                  residual: torch.Tensor,
+                  rng: Optional[DropoutRNG]) -> torch.Tensor:
+        """``norm(dropout(branch) + residual)``: the mask's uniforms are
+        drawn here, on every route, in the order of the forward."""
+        uniforms = None if rng is None else rng.uniforms(branch, self.p)
+        return norm(branch, residual, uniforms, self.p)
 
 
 class Transformer(nn.Module):

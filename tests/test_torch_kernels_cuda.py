@@ -16,7 +16,11 @@ in bf16 their out, dv, dq and dk must EQUAL the plain versions, so a
 single wrong dropout bit or dS element fails; on normal data their dq
 and dk lie
 within a per-element bound of one bf16 ulp per dS term; and two
-launches must give the same bits.
+launches must give the same bits. The fused dropout -> residual add ->
+LayerNorm (ops/residual_norm.py) agrees with its plain version within
+one ulp of the compute dtype plus what the order of its two fp32 row
+sums can move, keeps exactly the elements ``torch.rand(...) >= p``
+keeps, and gives the same bits twice.
 """
 import ctypes
 
@@ -28,6 +32,7 @@ from cldrd_tpu_torch.ops import extract_topk as k1
 from cldrd_tpu_torch.ops import fused_binmax as k2
 from cldrd_tpu_torch.ops import int8_dot as k7
 from cldrd_tpu_torch.ops import ivf_probe as k6
+from cldrd_tpu_torch.ops import residual_norm as rn
 from cldrd_tpu_torch.search import mips
 
 
@@ -1512,3 +1517,172 @@ def test_trace_holds_every_shards_search_kernels(tmp_path):
         int(e["args"]["device"]) for e in read_trace(str(tmp_path))
         if e.get("cat") == "kernel" and search.search(e["name"]))
     assert by_dev == collections.Counter(d.index for d in mesh.devices)
+
+
+# ------------------------- dropout -> residual add -> LayerNorm (fused)
+
+RN_EPS = 1e-12
+
+
+def _rn_operands(dev, rows, d, dtype, residual, p, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+    r = (torch.randn(rows, d, generator=g, device=dev).to(dtype)
+         if residual else None)
+    w = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    b = 0.1 * torch.randn(d, generator=g, device=dev)
+    u = torch.rand(rows, d, generator=g, device=dev) if p > 0 else None
+    dy = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+    return x, r, w, b, u, dy
+
+
+def _rn_check(x, r, w, b, u, p, dy):
+    """The kernels against the plain version on the same CUDA tensors,
+    forward and backward, within ``residual_norm.compare_to_plain``'s
+    bounds: one ulp of the compute dtype plus what the two fp32 row sums'
+    order can move (y, dx, the residual's gradient); the sum over rows in
+    another order (dw, db); dropped elements of dx exactly 0."""
+    before = dict(rn.LAUNCHES)
+    rn.compare_to_plain(x, r, w, b, RN_EPS, u, p, dy)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["fwd"] == before["fwd"] + 1
+    assert rn.LAUNCHES["bwd"] == before["bwd"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [384, 768])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("residual", [True, False])
+def test_residual_norm_equals_plain(dtype, d, p, residual):
+    """The encoder's widths (DistilBERT 768, MiniLM 384) at an odd number
+    of rows, with and without dropout and residual."""
+    dev = _device()
+    x, r, w, b, u, dy = _rn_operands(dev, 1001, d, dtype, residual, p, d)
+    _rn_check(x, r, w, b, u, p, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [384, 768])
+def test_residual_norm_inference_equals_plain(dtype, d):
+    """No gradient wanted (the teacher's sites, the query encode's): the
+    forward alone, saving nothing, against the plain version."""
+    dev = _device()
+    x, r, w, b, _, _ = _rn_operands(dev, 1001, d, dtype, True, 0.0, d + 1)
+    before = dict(rn.LAUNCHES)
+    rn.compare_to_plain(x, r, w, b, RN_EPS)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["fwd"] == before["fwd"] + 1
+    assert rn.LAUNCHES["bwd"] == before["bwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 32, 264, 1024, 2056, 4096])
+def test_residual_norm_generic_widths_equal_plain(dtype, d):
+    """Widths without their own instantiation: any multiple of 8 up to
+    4096, with dropout and residual."""
+    dev = _device()
+    x, r, w, b, u, dy = _rn_operands(dev, 67, d, dtype, True, 0.1, d)
+    _rn_check(x, r, w, b, u, 0.1, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_residual_norm_masks_are_the_torch_rand_draws(dtype):
+    """The saved mask EQUALS ``torch.rand(...) >= p`` drawn again from the
+    same generator state, bit for bit."""
+    dev = _device()
+    rows, d, p = 2049, 768, 0.1
+    x, r, w, b, _, _ = _rn_operands(dev, rows, d, dtype, True, 0.0, 5)
+    gen = torch.Generator(device=dev).manual_seed(2 ** 40 + 7)
+    state = gen.get_state()
+    u = torch.rand((rows, d), generator=gen, device=dev)
+    _, _, keep, _ = rn._launch_fwd(x, r, w, b, RN_EPS, u, p, True)
+    gen.set_state(state)
+    expected = torch.rand((rows, d), generator=gen, device=dev) >= p
+    torch.cuda.synchronize()
+    assert torch.equal(rn.keep_mask(keep, d, dtype), expected)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 768])
+def test_residual_norm_is_deterministic(d):
+    """Two launches, forward and backward, give the same bits."""
+    dev = _device()
+    x, r, w, b, u, dy = _rn_operands(dev, 4099, d, torch.bfloat16, True,
+                                     0.1, 9)
+    runs = [rn._outputs(rn.dropout_add_layer_norm, x, r, w, b, RN_EPS, u,
+                        0.1, dy) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), c.view(bits))
+
+
+@pytest.mark.cuda
+def test_residual_norm_raises_on_operands_the_kernels_do_not_take():
+    dev = _device()
+    rows, d = 8, 768
+    x, r, w, b, u, _ = _rn_operands(dev, rows, d, torch.bfloat16, True,
+                                    0.1, 1)
+    fn = rn.dropout_add_layer_norm
+    bad = [
+        (torch.zeros(rows, 100, dtype=torch.bfloat16, device=dev), None,
+         torch.ones(100, device=dev), torch.zeros(100, device=dev), None),
+        (torch.zeros(rows, 4104, dtype=torch.bfloat16, device=dev), None,
+         torch.ones(4104, device=dev), torch.zeros(4104, device=dev), None),
+        (x.half(), None, w, b, None),
+        (x.double(), None, w, b, None),
+        (torch.zeros(d, rows, dtype=torch.bfloat16, device=dev).t(), None,
+         w, b, None),
+        (torch.zeros(rows * d + 1, dtype=torch.bfloat16,
+                     device=dev)[1:].view(rows, d), None, w, b, None),
+        (x, r.float(), w, b, None),
+        (x, r, w.to(torch.bfloat16), b, None),
+        (x, r, w.cpu(), b, None),
+        (x, r, w, b, u.to(torch.bfloat16)),
+    ]
+    before = dict(rn.LAUNCHES)
+    for xx, rr, ww, bb, uu in bad:
+        with pytest.raises((TypeError, ValueError)):
+            fn(xx, rr, ww, bb, RN_EPS, uu, 0.1)
+    assert rn.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_encoder_takes_the_kernel_at_every_layer_norm():
+    """A DistilBERT-shaped encoder on the card: a training step launches
+    the fused forward and backward once a site (the embeddings, two a
+    block); an inference forward the forward alone."""
+    from cldrd_tpu_torch.models.distilbert import (
+        DistilBertConfig,
+        DistilBertEncoder,
+        DropoutRNG,
+    )
+
+    dev = _device()
+    cfg = DistilBertConfig.tiny(dim=768, n_heads=12, hidden_dim=3072,
+                                n_layers=2, attention_impl="pallas")
+    enc = DistilBertEncoder(cfg, torch.bfloat16).to(dev)
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (6, 64), device=dev)
+    mask = torch.ones(6, 64, dtype=torch.int32, device=dev)
+    mask[1, 30:] = 0
+    sites = 1 + 2 * cfg.n_layers
+    before = dict(rn.LAUNCHES)
+    hidden = enc.train()(ids, mask, cls_only=True,
+                         rng=DropoutRNG(3, 0, dev))
+    hidden.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["fwd"] == before["fwd"] + sites
+    assert rn.LAUNCHES["bwd"] == before["bwd"] + sites
+    assert all(torch.isfinite(prm.grad).all() for prm in enc.parameters())
+    before = dict(rn.LAUNCHES)
+    with torch.no_grad():
+        out = enc.eval()(ids, mask)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["fwd"] == before["fwd"] + sites
+    assert rn.LAUNCHES["bwd"] == before["bwd"]
+    assert torch.isfinite(out.float()).all()
