@@ -5,7 +5,9 @@ port's objects, warms up, runs the window and, after it, compares the
 window's outputs with the reference. ``run(run) -> dict`` returns the
 work counts, the end-to-end metrics, the shapes the per-layer readers
 need, and ``check``, the comparison, called once the port's state is
-freed.
+freed. Where it takes the window's time it calls ``run.close_spans()``.
+Each declares its work unit: ``UNIT`` (what ``attempted`` counts) and
+``units(traffic)``, those of one pass or step of the window's loop.
 """
 from __future__ import annotations
 

@@ -36,6 +36,13 @@ from portbench.reference.text import hash_tokenize
 
 from . import compute_dtype, dims, free_device, port_config
 
+UNIT = "queries"
+
+
+def units(traffic: dict) -> int:
+    """The queries of one pass."""
+    return traffic["queries"]
+
 
 def store_rows(seed: int, store: dict, dim: int, device):
     """Yield (start, float32 rows) of the store, block by block."""
@@ -60,7 +67,7 @@ def run(run):
         quantize_rows,
     )
     from cldrd_tpu_torch.models import NwayDualEncoder
-    from cldrd_tpu_torch.ops import attention, extract_topk
+    from cldrd_tpu_torch.ops import attention, extract_topk, residual_norm
 
     t, dev = run.traffic, torch.device(run.device)
     cfg = port_config(run.config)
@@ -117,11 +124,13 @@ def run(run):
             break
     run.sync()
     elapsed = time.perf_counter() - t0
+    run.close_spans()
     n_q = len(dataset)
     if run.trace:
         with run.traced(lambda: {
                 "extract_topk": extract_topk.LAUNCHES,
-                "attn_infer": attention.LAUNCHES["infer"]}):
+                "attn_infer": attention.LAUNCHES["infer"],
+                "residual_norm_fwd": residual_norm.LAUNCHES["fwd"]}):
             for _ in range(t["trace_passes"]):
                 one_pass()
     run.window_closed()

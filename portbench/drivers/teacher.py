@@ -10,8 +10,11 @@ function; ``warmup_passes`` passes.
 A pass: ``rerank_candidates_with_teacher`` over every (query, candidate)
 pair, flat (``batch_size`` pairs a call, ``max_len`` tokens, token types
 on), tokenization included. The window runs whole passes until
-``--seconds`` have gone by; ``teacher_pairs_s`` is the pairs scored over
-the window's seconds.
+``--seconds`` have gone by; its pairs over its seconds are
+``window["pairs"]`` (the per-layer ``pairs_s.teacher``). Then
+``trace_passes`` more passes are traced, in every run: their device-busy
+time a pass is ``teacher_pass_device_ms``, and with ``--trace 1`` the
+per-layer readers read the same trace.
 
 The comparison, over every pair of the window's last pass: each score
 against the reference's float32 cross-encoder, over the root mean square
@@ -33,6 +36,13 @@ from portbench.reference import encoder as ref_encoder
 from portbench.reference.text import hash_tokenize
 
 from . import compute_dtype, dims, free_device, port_config
+
+UNIT = "pairs"
+
+
+def units(traffic: dict) -> int:
+    """The (query, passage) pairs of one pass."""
+    return traffic["queries"] * traffic["candidates"]
 
 
 def make_data(seed: int, t: dict):
@@ -56,7 +66,7 @@ def run(run):
         make_cross_encoder_score_fn,
     )
     from cldrd_tpu_torch.models import CrossEncoder
-    from cldrd_tpu_torch.ops import attention
+    from cldrd_tpu_torch.ops import attention, residual_norm
 
     t, dev = run.traffic, torch.device(run.device)
     d = dims(run.config)
@@ -106,12 +116,15 @@ def run(run):
             break
     run.sync()
     elapsed = time.perf_counter() - t0
+    run.close_spans()
     calls_before = calls[0]
-    if run.trace:
-        with run.traced(lambda: {"attn_infer": attention.LAUNCHES["infer"]}):
-            for _ in range(t["trace_passes"]):
-                one_pass()
+    with run.traced(lambda: {
+            "attn_infer": attention.LAUNCHES["infer"],
+            "residual_norm_fwd": residual_norm.LAUNCHES["fwd"]}):
+        for _ in range(t["trace_passes"]):
+            one_pass()
     run.window_closed()
+    device_s = run.trace_data.all_busy_s()
     traced_calls = calls[0] - calls_before
     del model, score
     free_device()
@@ -126,9 +139,11 @@ def run(run):
                    t["max_len"]) for q, ps in lists.items() for p in ps]
     flops = roofline.seq_fwd_flops(lengths, d["dim"], d["hidden_dim"],
                                    d["n_layers"])
-    window = {"units": passes, "flops": passes * flops, "seconds": elapsed}
+    window = {"units": passes, "pairs": passes * n_pairs,
+              "flops": passes * flops, "seconds": elapsed}
     return {"attempted": passes * n_pairs, "failed": 0,
-            "metrics": {"teacher_pairs_s": passes * n_pairs / elapsed},
+            "metrics": {"teacher_pass_device_ms":
+                        1e3 * device_s / t["trace_passes"]},
             "window": window, "shapes": shapes,
             "check": lambda: check(run, qtexts, ptexts, lists, last)}
 

@@ -64,6 +64,13 @@ from portbench.reference.text import batch_order, hash_tokenize, nway_labels
 
 from . import dims, free_device, port_config
 
+UNIT = "examples"
+
+
+def units(traffic: dict) -> int:
+    """The examples of one step (every rank's)."""
+    return traffic["train"]["batch_size"]
+
 
 class WindowClosed(Exception):
     """Raised from the step hook to end ``Trainer.train`` after the
@@ -139,6 +146,7 @@ def run(run):
                 [r["trace"].busy_s for r in ranks]))
         run.launch_check = [f"rank {i}: {line}" for i, r in enumerate(ranks)
                             for line in r["launch_check"]]
+        run.spans = first["spans"]
     tr = t["train"]
     d = dims(run.config)
     bz = tr["batch_size"]
@@ -177,7 +185,7 @@ def train_process(run, paths: dict, rank: int, world: int) -> dict:
     """One process's (one rank's) ``Trainer.train`` call: the followed
     steps' readings, the warm-up, the window and any traced steps."""
     from cldrd_tpu_torch.data import HashTokenizer, NwayDataset
-    from cldrd_tpu_torch.ops import attention
+    from cldrd_tpu_torch.ops import attention, residual_norm
     from cldrd_tpu_torch.parallel.multihost import host_group
     from cldrd_tpu_torch.train import TrainConfig, Trainer
 
@@ -253,7 +261,9 @@ def train_process(run, paths: dict, rank: int, world: int) -> dict:
 
     def counters():
         return {"attn_fwd": attention.LAUNCHES["train_fwd"],
-                "attn_bwd": attention.LAUNCHES["train_bwd"]}
+                "attn_bwd": attention.LAUNCHES["train_bwd"],
+                "residual_norm_fwd": residual_norm.LAUNCHES["fwd"],
+                "residual_norm_bwd": residual_norm.LAUNCHES["bwd"]}
 
     def window_over() -> bool:
         """Rank 0's clock decides, and every rank hears it."""
@@ -284,6 +294,7 @@ def train_process(run, paths: dict, rank: int, world: int) -> dict:
             if window_over():
                 run.sync()
                 state["elapsed"] = time.perf_counter() - state["t0"]
+                run.close_spans()
                 state["window_steps"] = k - state["open_step"]
                 _log_marks(state["marks"], tr["batch_size"])
                 seen["late"] = late_state(k)
@@ -327,6 +338,7 @@ def train_process(run, paths: dict, rank: int, world: int) -> dict:
             "setup_s": run.setup_s, "opened_at": run.opened_at,
             "memory_peak": run.memory_peak, "trace": run.trace_data,
             "launch_check": run.launch_check,
+            "spans": run.spans,
             "program": {"losses": [losses.get(s)
                                    for s in range(1, followed + 1)],
                         "logits": seen.get("logits", []),

@@ -15,7 +15,11 @@ first profiler session, through the port's
 ``utils.profiling.trace``), then the device's memory peak, the port's
 state freed, and the comparison with the plain reference. The last line
 of standard output is the result; the numbers compared close standard
-error, each beside its limit.
+error, each beside its limit. With ``--trace 1`` the port's own spans
+(``cldrd.*``) are gathered over the window too, by a collector on the
+host's clock (``utils.profiling.collect``), for the readers of host
+time; the ``--trace 0`` runs that give the end-to-end metrics run
+without it.
 """
 from __future__ import annotations
 
@@ -114,15 +118,44 @@ class Run:
         self.memory_peak = 0
         self.trace_data = None
         self.launch_check: List[str] = []
+        # the port's spans over the window: {"totals": host seconds,
+        # "counts": calls} by span name (--trace 1 runs)
+        self.spans: Optional[dict] = None
+        self._collector = None  # (the installed ``collect``, its timer)
 
     # ------------------------------------------------------------ phases
 
     def window_opens(self) -> None:
-        """Set-up ends here: the next operation is timed."""
+        """Set-up ends here: the next operation is timed. In a ``--trace
+        1`` run the port's spans are gathered from here until the driver
+        takes the window's time (``close_spans``)."""
         self.sync()
         self.setup_s = process_age()
         self.opened_at = time.time()
         log(f"setup_s {self.setup_s:.3f}")
+        if self.trace:
+            from cldrd_tpu_torch.utils.profiling import PhaseTimer, collect
+
+            installed = collect(PhaseTimer())
+            self._collector = (installed, installed.__enter__())
+
+    def close_spans(self) -> None:
+        """The window's time is taken: remove the span collector and keep
+        the host seconds and calls it gathered (``spans``). Spans still
+        open add nothing to them."""
+        if self._collector is None:
+            return
+        installed, timer = self._collector
+        self._collector = None
+        self.spans = {"totals": timer.totals(), "counts": timer.counts()}
+        installed.__exit__(None, None, None)
+
+    def drop_spans(self) -> None:
+        """Remove a collector that the driver did not close (it raised),
+        keeping nothing."""
+        if self._collector is not None:
+            self._collector[0].__exit__(None, None, None)
+            self._collector = None
 
     def window_closed(self) -> None:
         """The window and any traced segment are over: read the device's
@@ -211,7 +244,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     run = Run(cell, seed, seconds, trace, device)
     driver = importlib.import_module(
         "portbench.drivers." + cell.traffic["driver"])
-    out = driver.run(run)
+    try:
+        out = driver.run(run)
+    finally:
+        run.drop_spans()
     if device != "cpu":
         log("card:", card_line())
     numbers = out["check"]()
@@ -228,8 +264,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             value = reader.read(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        if run.trace_data is not None:
+            for what, ms in (("harness", run.trace_data.by_span_ms()),
+                             ("program", run.trace_data.by_span_ms(
+                                 program=True))):
+                log(f"device ms by {what} span: {json.dumps(ms)}")
     else:
-        metrics = {m["name"]: {"value": out["metrics"][m["name"]],
+        metrics = {m["name"]: {"value": driver_metric(out["metrics"],
+                                                      m["name"]),
                                "unit": m["unit"]}
                    for m in cell.end_to_end if m["name"] != "setup_s"}
         metrics["setup_s"] = {"value": run.setup_s, "unit": "s"}
@@ -248,17 +290,29 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     return result
 
 
+def driver_metric(values: Dict[str, float], name: str) -> float:
+    """An end-to-end metric's value from the driver's: under its whole
+    name, or where the driver gives none by it, under its name up to the
+    first dot (``teacher_pass_device_ms.<cell>`` takes the teacher
+    driver's ``teacher_pass_device_ms``), so a cell can join with an
+    entry of its own."""
+    return values[name] if name in values else values[name.split(".")[0]]
+
+
 class MetricContext:
     """What a per-layer reader reads: the trace (``trace``: a
     ``tracing.Trace`` or None), the window's counts (``window``), the
-    driver's shapes (``shapes``), and whether the trace's kernel events
-    matched the launch counters (``complete``)."""
+    driver's shapes (``shapes``), whether the trace's kernel events
+    matched the launch counters (``complete``), and the port's spans
+    over the window (``spans``: ``{"totals": host seconds, "counts":
+    calls}`` by span name, or None)."""
 
     def __init__(self, run: Run, out: dict):
         self.trace = run.trace_data
         self.window = out.get("window", {})
         self.shapes = out.get("shapes", {})
         self.complete = not run.launch_check
+        self.spans = run.spans
 
 
 def device_info(run: Run) -> dict:

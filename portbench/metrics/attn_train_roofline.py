@@ -2,12 +2,15 @@
 steps (every block but the CLS-only last one of both towers: the
 queries at [bz, lq], the passages at [bz * nway, lp]; bf16, the mask
 read once) over their device time."""
+from portbench.metrics import has
 from portbench.roofline import attn_bytes_ops, bound_ms, pct
 
 
 def read(m):
     t, s = m.trace, m.shapes
-    if t is None or not m.complete:
+    if t is None or not m.complete or not has(
+            s, "trace_steps", "n_layers", "dim", "n_heads", "batch_size",
+            "lq", "nway", "lp"):
         return None
     steps, blocks = s["trace_steps"], s["n_layers"] - 1
     if t.count("attn_fwd") != 2 * blocks * steps:

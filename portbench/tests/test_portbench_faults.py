@@ -20,6 +20,9 @@ RETRIEVE = "distilbert.retrieve.exact-int8-b512"
 TRAIN = "distilbert.train.flat-bz8"
 TEACHER = "minilm.teacher.flat-top100"
 TRAIN_DP = "distilbert.train.dp4-bz8"
+# the cells of BENCHMARK.json, and with them those only a tiny file names
+BENCH_CELLS = [w["name"] for w in harness.load_json(
+    harness.ROOT, "BENCHMARK.json")["workloads"]]
 
 
 def _run(name):
@@ -146,7 +149,7 @@ def test_teacher_half_batch(monkeypatch):
     assert not _run(TEACHER)["correct"]
 
 
-@pytest.mark.parametrize("name", [RETRIEVE, TRAIN, TEACHER, TRAIN_DP])
+@pytest.mark.parametrize("name", tiny.names())
 def test_control_parts_from_the_port(name):
     """At the test's size the control, judged as the port is, reads at
     least three times what the port's sound run reads on one of the
@@ -162,7 +165,7 @@ def test_control_parts_from_the_port(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", [RETRIEVE, TRAIN, TEACHER])
+@pytest.mark.parametrize("name", BENCH_CELLS)
 def test_control_fails_at_cell_size(name):
     """On the card: the control at the cell's own size, on three seeds,
     fails the cell's limits on each (``python -m pytest --noconftest
@@ -178,7 +181,7 @@ def test_control_fails_at_cell_size(name):
         assert any(v > cell.limits[k] for k, v in numbers.items()), numbers
 
 
-@pytest.mark.parametrize("name", [RETRIEVE, TRAIN, TEACHER])
+@pytest.mark.parametrize("name", BENCH_CELLS)
 def test_sound_tiny_runs_pass_their_limits(name):
     """The tiny cells' sound runs are correct under the cells' limits."""
     res = _run(name)

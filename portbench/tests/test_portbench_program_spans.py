@@ -1,11 +1,14 @@
 """The port's own ranges (``cldrd.*``, ``utils.profiling.annotate``) in a
-trace move no reading of the benchmark: ``tracing.parse`` reads the
-harness's ``portbench.*`` spans alone, so a trace with the program's
+trace move no reading of the benchmark: a trace with the program's
 ranges and the same trace without them give the same device operations,
-the same busy time, the same ``breakdown()`` and the same value from
-every per-layer reader. Checked on synthetic events with device
+each tied to the same harness span, the same busy time, the same device
+operations in ``breakdown()`` and the same value from every per-layer
+reader. What the ranges add: the device milliseconds by program range,
+and idle gaps named ``<harness span or ->: <program span>``; without
+them the gaps read as before. Checked on synthetic events with device
 operations and on a real traced run of the tiny cells on the CPU, whose
-trace holds the program's ranges."""
+trace holds the program's ranges. Every reader reads nothing from
+nothing (``portbench/metrics/__init__.py``'s contract)."""
 import math
 import types
 
@@ -76,25 +79,40 @@ def _shapes():
             "lp": 256}
 
 
+# the collector's gathering over a window (host seconds, calls)
+SPANS = {"totals": {"cldrd.data.wait": 0.012, "cldrd.train.h2d": 0.024,
+                    "cldrd.train.forward": 0.03, "cldrd.train.backward":
+                    0.027, "cldrd.train.optimizer": 0.031,
+                    "cldrd.search.resolve": 0.084},
+         "counts": {"cldrd.data.wait": 15, "cldrd.train.h2d": 1,
+                    "cldrd.train.forward": 1, "cldrd.train.backward": 1,
+                    "cldrd.train.optimizer": 1, "cldrd.search.resolve": 14}}
+PER_LAYER = harness.load_json(harness.ROOT, "BENCHMARK.json")["per_layer"]
+
+
+def _reader(name):
+    return harness.load_module(harness.reader_path(name),
+                               "spans_" + name.replace(".", "_"))
+
+
 def _readings(trace):
     """Every per-layer metric of ``BENCHMARK.json`` read from ``trace``."""
     ctx = types.SimpleNamespace(
         trace=trace, shapes=_shapes(), complete=True,
         window={"units": 1, "seconds": 0.02, "flops": 1e12,
-                "examples": 8})
-    out = {}
-    for m in harness.load_json(harness.ROOT, "BENCHMARK.json")["per_layer"]:
-        reader = harness.load_module(harness.reader_path(m["name"]),
-                                     "spans_" + m["name"].replace(".", "_"))
-        out[m["name"]] = reader.read(ctx)
-    return out
+                "examples": 8}, spans=SPANS)
+    return {m["name"]: _reader(m["name"]).read(ctx) for m in PER_LAYER}
 
 
 def _same(a: tracing.Trace, b: tracing.Trace):
     assert a.ops == b.ops
     assert a.busy_s == b.busy_s and a.window_s == b.window_s
     assert a.all_busy_s() == b.all_busy_s()
-    assert a.breakdown() == b.breakdown()
+    assert a.breakdown()["device_ops"] == b.breakdown()["device_ops"]
+    assert a.by_span_ms() == b.by_span_ms()
+    # the same idle seconds, however they are named
+    assert math.isclose(sum(s for _, s in a.idle_gaps()),
+                        sum(s for _, s in b.idle_gaps()))
     ra, rb = _readings(a), _readings(b)
     assert ra == rb
     return ra
@@ -106,12 +124,43 @@ def test_program_ranges_move_no_reading_on_synthetic_events():
     readings = _same(plain, spanned)
     # the readers read something here, so the equality means something
     got = [v for v in readings.values() if v is not None]
-    assert len(got) >= 8 and all(math.isfinite(v) for v in got)
+    assert len(got) >= 14 and all(math.isfinite(v) for v in got)
     # each device operation keeps the harness span it was launched in
     assert [sp for *_, sp in spanned.ops] == [
         "encode", "encode", "search", "score", "score", "score", "search"]
-    labels = [label for label, _ in spanned.idle_gaps()]
-    assert not any("cldrd." in label for label in labels)
+    # without program ranges the gaps read as they did before them
+    assert plain.breakdown()["idle_gaps"] == [["host", 0.0055]]
+    assert plain.by_span_ms(program=True) == {}
+    # with them, a gap is named by the program range open at its middle
+    # (the innermost: the rescue inside the resolve), else as before
+    gaps = {k: round(v, 9) for k, v in spanned.idle_gaps()}
+    assert gaps == {"score: cldrd.teacher.score": 0.0023,
+                    "host": 0.0015, "-: cldrd.data.wait": 0.0013,
+                    "search: cldrd.search.rescue": 0.0004}
+    # and each device operation by the range open at its launch; the
+    # producer thread's range is not the traced thread's
+    ms = {k: round(v, 9) for k, v in
+          spanned.by_span_ms(program=True).items()}
+    assert ms == {"cldrd.index.encode": 1.7, "cldrd.search.dispatch": 1.5,
+                  "cldrd.search.rescue": 0.7, "cldrd.teacher.score": 0.6}
+
+
+@pytest.mark.parametrize("metric", PER_LAYER, ids=lambda m: m["name"])
+def test_every_reader_reads_nothing_from_nothing(metric):
+    """The readers' contract: None where the trace, the shapes, the
+    window or the spans it needs are absent, with or without the rest."""
+    read = _reader(metric["name"]).read
+    trace = tracing.parse(_harness_events() + _program_events(), 0.01)
+    empty = types.SimpleNamespace(trace=None, shapes={}, complete=True,
+                                  window={}, spans=None)
+    assert read(empty) is None
+    assert read(types.SimpleNamespace(**dict(vars(empty),
+                                             trace=trace))) is None
+    if metric["source"] == "device_trace":  # all but the trace
+        assert read(types.SimpleNamespace(
+            trace=None, shapes=_shapes(), complete=True, spans=SPANS,
+            window={"units": 1, "seconds": 0.02, "flops": 1e12,
+                    "examples": 8})) is None
 
 
 def _traced_events(monkeypatch, name):
@@ -150,3 +199,34 @@ def test_program_ranges_move_no_reading_on_a_cpu_trace(monkeypatch, name,
     without = [e for e in events
                if not e.get("name", "").startswith("cldrd.")]
     _same(tracing.parse(without, 1.0), tracing.parse(events, 1.0))
+
+
+SPAN_READERS = [m for m in PER_LAYER if m["name"].split(".")[0] in
+                {"data_wait_ms", "h2d_ms", "dispatch_ms", "resolve_ms"}]
+
+
+@pytest.mark.parametrize("name", sorted({c for m in SPAN_READERS
+                                         for c in m["workloads"]}))
+def test_spans_read_over_the_window_of_a_traced_run(monkeypatch, name):
+    """``--trace 1``: the port's spans gathered over the window reach
+    their readers; ``--trace 0``: no collector is installed, so the
+    end-to-end metrics are taken without one. Either way none is left
+    installed after the run."""
+    from cldrd_tpu_torch.utils import profiling
+
+    installed = []
+    real = profiling.collect
+    monkeypatch.setattr(profiling, "collect",
+                        lambda timer: installed.append(timer)
+                        or real(timer))
+    cell = tiny.cell(name)
+    # a window of several steps: it opens and closes inside a step
+    res = harness.run_cell(cell, 5_400_000_029, 2.0, True, device="cpu")
+    assert res["correct"], res["checks"]
+    assert len(installed) == 1 and profiling._collector is None
+    for m in SPAN_READERS:
+        if name in m["workloads"]:
+            value = res["metrics"][m["name"]]["value"]
+            assert 0 < value < 2e3, (m["name"], value)
+    harness.run_cell(cell, 5_400_000_029, 0.2, False, device="cpu")
+    assert len(installed) == 1 and profiling._collector is None

@@ -13,21 +13,19 @@ from portbench import harness
 from portbench.reference import dropout as ref_dropout
 from portbench.tests import tiny
 
-CELLS = ["distilbert.retrieve.exact-int8-b512", "distilbert.train.flat-bz8",
-         "minilm.teacher.flat-top100"]
-
-# float32 on both sides: differences are float32 rounding; the search
-# still scores bf16 queries (the port's int8 stores take bf16 queries)
-TIGHT = {"emb_err": 1e-5, "score_err": 1e-2, "rank_err": 1e-2,
-         "bad_lists": 0.0, "logit_err": 1e-4, "change_err": 1e-3,
-         "late_logit_err": 1e-4, "late_change_err": 1e-3}
+# the cells whose tiny file (``portbench/tiny/<cell>.json``) holds
+# ``tight``: float32 on both sides, so differences are float32 rounding
+# (the search still scores bf16 queries: the port's int8 stores take
+# bf16 queries)
+CELLS = tiny.tight_names()
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_float32_port_equals_reference(name):
     cell = tiny.cell(name)
     cell.config["compute_dtype"] = "float32"
-    cell.limits = {k: TIGHT[k] for k in cell.limits}
+    tight = tiny.sizes(name)["tight"]
+    cell.limits = {k: tight[k] for k in cell.limits}
     res = harness.run_cell(cell, 2**31 + 17, 0.2, False, device="cpu")
     assert res["correct"], res["checks"]
 

@@ -1,6 +1,8 @@
 """A CPU rehearsal of every traffic mix through the port at a tiny size:
-the work counted, and the result's shape, untraced and traced. The run
-command itself refuses to run without a card."""
+the work counted (in the unit its driver declares), and the result's
+shape, untraced and traced. The run command itself refuses to run
+without a card."""
+import importlib
 import json
 import os
 
@@ -10,10 +12,7 @@ from portbench import harness, run as run_cmd
 from portbench.tests import tiny
 
 BENCH = harness.load_json(harness.ROOT, "BENCHMARK.json")
-CELLS = [w["name"] for w in BENCH["workloads"]] + [tiny.DP]
-UNITS = {"retrieve": ("queries", lambda t: t["queries"]),
-         "teacher": ("pairs", lambda t: t["queries"] * t["candidates"]),
-         "train": ("examples", lambda t: t["train"]["batch_size"])}
+CELLS = tiny.names()
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -23,9 +22,11 @@ def test_rehearsal(name, trace):
     res = harness.run_cell(cell, 3, 0.3, trace, device="cpu")
     assert list(res)[:3] == ["correct", "attempted", "failed"]
     assert list(res)[-1] == "checks"
-    unit, per = UNITS[cell.traffic["driver"]]
-    assert res["attempted"] > 0 and res["attempted"] % per(cell.traffic) \
-        == 0
+    drv = importlib.import_module("portbench.drivers."
+                                  + cell.traffic["driver"])
+    per = drv.units(cell.traffic)
+    assert res["attempted"] > 0 and res["attempted"] % per == 0, \
+        f"{res['attempted']} {drv.UNIT} attempted, not whole units of {per}"
     assert res["failed"] == 0
     if trace:
         assert "breakdown" in res and "busy_s" in res["device"]
@@ -45,11 +46,14 @@ def test_rehearsal(name, trace):
 
 def test_every_name_has_its_files():
     here = os.path.join(harness.ROOT, "portbench")
-    for w in BENCH["workloads"] + [{"name": tiny.DP,
-                                    "traffic": "train-dp4-bz8"}]:
+    left_out = [dict(tiny.sizes(n)["workload"], name=n) for n in CELLS
+                if n not in {w["name"] for w in BENCH["workloads"]}]
+    for w in BENCH["workloads"] + left_out:
         assert os.path.exists(os.path.join(here, "traffic",
                                            w["traffic"] + ".json"))
         assert os.path.exists(os.path.join(here, "limits",
+                                           w["name"] + ".json"))
+        assert os.path.exists(os.path.join(here, "tiny",
                                            w["name"] + ".json"))
     for c in BENCH["configs"]:
         assert os.path.exists(os.path.join(harness.ROOT, c["file"]))

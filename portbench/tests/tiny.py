@@ -1,64 +1,76 @@
 """Tiny cells for the CPU tests: the benchmark's configurations and
-mixes with the sizes cut, the drivers and the reference unchanged."""
+mixes with the sizes cut, the drivers and the reference unchanged.
+
+Each cell's cut is a file of its own, ``portbench/tiny/<cell>.json``:
+
+- ``config``: overrides in the configuration file's own keys, so each
+  family is cut by its own names;
+- ``traffic``: overrides of the traffic mix (nested groups merged key by
+  key);
+- ``tight`` (optional): the limits its float32 run holds to the
+  reference (``test_portbench_reference``);
+- ``workload`` (optional, for a cell measured but left out of
+  ``BENCHMARK.json``): its entry as ``workloads`` would hold it, with
+  ``like`` naming the cell whose metrics it reports.
+"""
 from __future__ import annotations
 
 import copy
+import os
 
 from portbench import harness
 
-SIZES = {"dim": 64, "hidden_dim": 128, "n_heads": 2, "n_layers": 2,
-         "vocab_size": 512, "max_position_embeddings": 64}
-BERT = {"hidden_size": 64, "intermediate_size": 128,
-        "num_attention_heads": 2, "num_hidden_layers": 2,
-        "vocab_size": 512, "max_position_embeddings": 64}
-TRAFFIC = {
-    "distilbert.retrieve.exact-int8-b512": {
-        "queries": 200, "encode_batch": 64, "search_batch": 128, "k": 100,
-        "vocab_words": 300,
-        "store": {"rows": 16384, "block_rows": 4096, "centres": 64,
-                  "noise": 0.5, "norm_sigma": 0.25},
-        "warmup_passes": 1, "trace_passes": 1},
-    "distilbert.train.flat-bz8": {
-        "examples": 40, "passages": 200, "vocab_words": 300,
-        "passage_words": {"mean": 20.0, "sigma": 0.45, "min": 4,
-                          "max": 60},
-        "warmup_steps_run": 4, "trace_steps": 2},
-    "minilm.teacher.flat-top100": {
-        "queries": 4, "candidates": 20, "vocab_words": 300, "max_len": 48,
-        "batch_size": 16,
-        "passage_words": {"mean": 20.0, "sigma": 0.45, "min": 4,
-                          "max": 60},
-        "warmup_passes": 1, "trace_passes": 1},
-}
-TRAIN = {"batch_size": 2, "max_passage_len": 32, "logging_steps": 2}
-DP = "distilbert.train.dp4-bz8"
+DIR = os.path.join(harness.HERE, "tiny")
+
+
+def sizes(name: str) -> dict:
+    """The tiny file of cell ``name``."""
+    path = os.path.join(DIR, name + ".json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no tiny sizes for cell {name!r}: add "
+            f"{os.path.relpath(path, harness.ROOT)} with its config, "
+            "traffic and tight overrides")
+    return harness.load_json(path)
+
+
+def names() -> list:
+    """Every cell of ``BENCHMARK.json`` in its order, then the cells that
+    only a tiny file names (measured but left out of it)."""
+    bench = [w["name"] for w in harness.load_json(
+        harness.ROOT, "BENCHMARK.json")["workloads"]]
+    files = sorted(f[:-len(".json")] for f in os.listdir(DIR)
+                   if f.endswith(".json"))
+    return bench + [n for n in files if n not in bench]
+
+
+def tight_names() -> list:
+    """The cells whose tiny file holds float32 limits."""
+    return [n for n in names()
+            if os.path.exists(os.path.join(DIR, n + ".json"))
+            and "tight" in sizes(n)]
+
+
+def merged(base: dict, over: dict) -> dict:
+    out = copy.deepcopy(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merged(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
 
 
 def cell(name: str) -> harness.Cell:
-    if name == DP:
-        return dp_cell()
-    c = harness.Cell(name)
-    c.config = dict(c.config)
-    c.config.update(BERT if c.config["model_type"] == "bert" else SIZES)
-    c.traffic = copy.deepcopy(c.traffic)
-    c.traffic.update(TRAFFIC[name])
-    if "train" in c.traffic:
-        c.traffic["train"].update(TRAIN)
-        # a global batch of 2 a rank
-        c.traffic["train"]["batch_size"] = 2 * c.traffic.get("ranks", 1)
-    return c
-
-
-def dp_cell() -> harness.Cell:
-    """The train cell on four ranks (gloo on the CPU), its mix read from
-    ``traffic/train-dp4-bz8.json``: a cell measured on four cards and
-    left out of ``BENCHMARK.json`` (PERF.md, open questions)."""
-    c = cell("distilbert.train.flat-bz8")
-    c.name, c.chips = DP, 4
-    c.traffic = copy.deepcopy(harness.load_json(
-        harness.HERE, "traffic", "train-dp4-bz8.json"))
-    c.traffic.update(TRAFFIC["distilbert.train.flat-bz8"],
-                     warmup_steps_run=3)
-    c.traffic["train"].update(TRAIN, batch_size=2 * c.traffic["ranks"])
-    c.limits = harness.load_json(harness.HERE, "limits", DP + ".json")
+    cut = sizes(name)
+    bench = harness.load_json(harness.ROOT, "BENCHMARK.json")
+    if "workload" in cut:
+        w = cut["workload"]
+        bench["workloads"].append(dict(w, name=name))
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if w.get("like") in m.get("workloads", ()):
+                m["workloads"].append(name)
+    c = harness.Cell(name, bench)
+    c.config = merged(c.config, cut["config"])
+    c.traffic = merged(c.traffic, cut["traffic"])
     return c

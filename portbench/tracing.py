@@ -7,9 +7,16 @@
   harness's spans around the calls into each layer) open at that call.
 - The window: the ``portbench.traced`` range. ``busy_s`` is the union of
   the device operations' intervals inside it, ``window_s`` its length.
+- The port's own ranges (``cldrd.*``, ``utils.profiling.annotate``) on
+  the thread that opened ``portbench.traced``: each device operation is
+  also tied to the innermost one open at its launch (``by_span_ms(
+  program=True)``), apart from the harness's spans, which the readers
+  read as before.
 - Idle gaps: the stretches of the window with no device operation,
-  labelled by the span and the innermost host operation running across
-  their middle.
+  labelled ``<harness span or ->: <program span>`` by the innermost
+  ranges open across their middle, or where no program range is open,
+  by the harness span and the innermost host operation running there.
+  A trace without program ranges reads as it did before they existed.
 - ``hold_to_counters``: kernel events counted by name against the port's
   launch counters over the same segment (the driver names each counter
   by the fragment of its kernels' names); a shortfall (records the trace
@@ -24,12 +31,32 @@ from typing import Dict, List, Optional, Tuple
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 SPAN = "portbench."
+PROGRAM = "cldrd."
+
+
+class Ranges:
+    """Named ranges on one thread, and the innermost open at a time."""
+
+    def __init__(self, ranges):
+        self._ranges = sorted(ranges)  # [(ts, end, name)]
+        self._starts = [r[0] for r in self._ranges]
+
+    def at(self, t: float) -> Optional[str]:
+        for i in range(bisect.bisect_right(self._starts, t) - 1, -1, -1):
+            a, b, name = self._ranges[i]
+            if b >= t:  # the latest start covering it: innermost
+                return name
+        return None
 
 
 class Trace:
-    def __init__(self, ops, host, window, wall):
+    def __init__(self, ops, host, window, wall, spans, program,
+                 op_programs):
         self.ops = ops            # [(name, ts, dur, span)] in microseconds
         self._host = host         # [(ts, end, name, span)] host operations
+        self._spans, self._program = spans, program  # harness's, port's
+        # the innermost program range open at each op's launch
+        self.op_programs = op_programs
         self.t0, self.t1 = window
         self.window_s = (self.t1 - self.t0) / 1e6 if self.t1 > self.t0 \
             else wall
@@ -54,6 +81,17 @@ class Trace:
                    if (pattern is None or pattern in name)
                    and (span is None or sp == span)) / 1e3
 
+    def by_span_ms(self, program: bool = False) -> Dict[str, float]:
+        """Device milliseconds by the harness span (or with ``program``,
+        the port's innermost range) open at each operation's launch;
+        operations launched outside every span are left out."""
+        out: Dict[str, float] = defaultdict(float)
+        spans = self.op_programs if program else [o[3] for o in self.ops]
+        for (_, _, dur, _), sp in zip(self.ops, spans):
+            if sp is not None:
+                out[sp] += dur / 1e3
+        return dict(out)
+
     def count(self, pattern: str) -> int:
         return sum(1 for name, _, _, _ in self.ops if pattern in name)
 
@@ -74,13 +112,17 @@ class Trace:
                 continue
             mid = (a + b) / 2
             label = "host"
-            # the innermost host operation covering the gap's middle
-            hi = bisect.bisect_right(starts, mid)
-            for i in range(hi - 1, max(hi - 4096, 0) - 1, -1):
-                ts, end, name, sp = self._host[i]
-                if end >= mid:  # the latest start covering it: innermost
-                    label = f"{sp or '-'}: {name}"
-                    break
+            program = self._program.at(mid)
+            if program is not None:
+                label = f"{self._spans.at(mid) or '-'}: {program}"
+            else:
+                # the innermost host operation covering the gap's middle
+                hi = bisect.bisect_right(starts, mid)
+                for i in range(hi - 1, max(hi - 4096, 0) - 1, -1):
+                    ts, end, name, sp = self._host[i]
+                    if end >= mid:  # the latest start covering it
+                        label = f"{sp or '-'}: {name}"
+                        break
             gaps[label] += (b - a) / 1e6
         return sorted(gaps.items(), key=lambda kv: -kv[1])
 
@@ -106,6 +148,8 @@ def _merge(intervals, lo, hi):
 def parse(events: List[dict], wall: float) -> Trace:
     spans: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
     ranges = []  # (ts, end, span name)
+    program = []  # (ts, end, name, thread) of the port's ranges
+    traced_thread = None
     host = []
     launch_ts: Dict[int, float] = {}
     ops_raw = []
@@ -125,25 +169,24 @@ def parse(events: List[dict], wall: float) -> Trace:
             name = e["name"][len(SPAN):]
             spans[name].append((ts, dur))
             ranges.append((ts, ts + dur, name))
+            if name == "traced":
+                traced_thread = (e.get("pid"), e.get("tid"))
+        elif cat == "user_annotation" and e["name"].startswith(PROGRAM):
+            program.append((ts, ts + dur, e["name"],
+                            (e.get("pid"), e.get("tid"))))
         elif cat == "cpu_op":
             host.append((ts, ts + dur, e["name"]))
     window = spans.get("traced", [(0.0, 0.0)])[0]
-    ranges = sorted(r for r in ranges if r[2] != "traced")
-    starts = [r[0] for r in ranges]
-
-    def span_at(t):
-        """The innermost harness span open at ``t``."""
-        for i in range(bisect.bisect_right(starts, t) - 1, -1, -1):
-            a, b, name = ranges[i]
-            if b >= t:  # the latest start covering it: innermost
-                return name
-        return None
-
-    ops = [(name, ts, dur, span_at(launch_ts.get(corr, ts)))
-           for name, ts, dur, corr in ops_raw]
-    host = sorted((a, b, name, span_at(a)) for a, b, name in host)
-    return Trace(ops, host,
-                 (window[0], window[0] + window[1]), wall)
+    harness = Ranges(r for r in ranges if r[2] != "traced")
+    ours = Ranges((a, b, name) for a, b, name, thread in program
+                  if thread == traced_thread)
+    launches = [launch_ts.get(corr, ts) for _, ts, _, corr in ops_raw]
+    ops = [(name, ts, dur, harness.at(t))
+           for (name, ts, dur, _), t in zip(ops_raw, launches)]
+    host = sorted((a, b, name, harness.at(a)) for a, b, name in host)
+    return Trace(ops, host, (window[0], window[0] + window[1]), wall,
+                 spans=harness, program=ours,
+                 op_programs=[ours.at(t) for t in launches])
 
 
 def hold_to_counters(trace: Trace, launched: Dict[str, int]) -> List[str]:
